@@ -1,0 +1,35 @@
+"""Shared helpers for architecture configs, incl. the smoke-test reducer."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+
+def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family variant: <=2 periods, d_model 256, 4 heads x 64.
+
+    Keeps the pattern (so alternating structure is exercised) while
+    shrinking every dimension for a CPU-speed forward step.  Same values as
+    ``repro.configs.common.smoke_reduce`` for the families ported here.
+    """
+    kw: dict = {
+        "n_layers": len(cfg.pattern) * max(1, 2 // len(cfg.pattern)),
+        "d_model": 256,
+        "d_ff": 512,
+        "vocab_size": min(cfg.vocab_size, 512),
+        "param_dtype": "float32",
+        "compute_dtype": "float32",
+    }
+    if cfg.attn is not None:
+        a = cfg.attn
+        n_heads = 4
+        n_kv = max(1, min(a.n_kv_heads, n_heads * a.n_kv_heads // a.n_heads))
+        kw["attn"] = dataclasses.replace(
+            a, n_heads=n_heads, n_kv_heads=n_kv, head_dim=64,
+            window=None if a.window is None else 64)
+        kw["pattern"] = tuple(
+            dataclasses.replace(s, window=None if s.window is None else 64)
+            for s in cfg.pattern)
+    return cfg.replace(**kw)

@@ -1,0 +1,96 @@
+"""Model configuration schema (the attn + dense-MLP subset of ``repro``'s).
+
+``LayerSpec``, ``ModelConfig`` and ``AttentionConfig`` carry the same field
+names and defaults as ``repro.models``.  Left out: the fields of families
+this port does not have yet (MoE, Mamba, RWKV, MLA, multi-codebook heads,
+frontend prefixes, MTP), which ``repro_torch.configs.get_config`` refuses,
+and ``AttentionConfig.q_chunk``/``kv_chunk``, the block sizes of ``repro``'s
+XLA attention (the port's flash kernel tiles by its own).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    window: int | None = None          # sliding-window size (None = full)
+    softcap: float | None = None       # attn logit softcapping (Gemma2)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer inside the repeating block pattern.
+
+    kind:   'attn' (the only mixer ported so far)
+    mlp:    'mlp' (dense, uses cfg.act/d_ff) | 'none'
+    window: sliding-window override for this layer (None = cfg default).
+    """
+
+    kind: str = "attn"
+    mlp: str = "mlp"
+    window: int | None = None
+    full_attention: bool = True      # False => use `window`
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    vocab_size: int
+    d_ff: int
+    attn: AttentionConfig | None = None
+    pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
+    act: str = "silu"                # dense MLP activation ('gelu_tanh' => GeGLU)
+    norm_eps: float = 1e-6
+    zero_centered_norm: bool = False # Gemma-style (1 + w) RMSNorm
+    post_norms: bool = False         # Gemma2 sandwich norms
+    tie_embeddings: bool = False
+    logit_softcap: float | None = None
+    embed_scale: bool = False        # Gemma multiplies embeddings by sqrt(d)
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    source: str = ""
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"n_layers {self.n_layers} is not a multiple of "
+                             f"the pattern length {len(self.pattern)}")
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def layer_param_count(self, spec: LayerSpec) -> int:
+        d, n = self.d_model, 0
+        if spec.kind == "attn":
+            a = self.attn
+            n += d * a.n_heads * a.head_dim * 2
+            n += d * a.n_kv_heads * a.head_dim * 2
+        if spec.mlp == "mlp":
+            n += 3 * d * self.d_ff
+        return n + 2 * d  # norms
+
+    def param_count(self) -> int:
+        n = sum(self.layer_param_count(s) for s in self.pattern) * self.n_periods
+        n += self.vocab_size * self.d_model  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model
+        return n
