@@ -3,24 +3,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the full width of ``phi3-mini-3.8b``
-(32 layers, d_model 3072, 32 heads x 96, d_ff 8192, vocab 32064, fp32,
-random weights from a seeded ``torch.Generator`` on the card):
+Drives the port's serving and training paths at the full width of
+``phi3-mini-3.8b`` (32 layers, d_model 3072, 32 heads x 96, d_ff 8192,
+vocab 32064, fp32, random weights from a seeded ``torch.Generator`` on the
+card):
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
-2. builds the three CUDA kernels from ``src/repro_torch/csrc`` with nvcc
-   for ``sm_90a`` (one nvcc per source, in parallel);
-3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and at GQA / window / softcap / ragged /
+2. builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+   ``sm_90a`` (one nvcc per source, in parallel);
+3. holds each serving kernel against its plain PyTorch version on the card,
+   at the shapes the serving path gives it and at GQA / window / softcap / ragged /
    bf16 edge cases, and times kernel, plain version and (where one PyTorch
    call computes the same function) that library call with CUDA events;
+3b. holds the training slice's kernels against their plain versions:
+   quantize / dequantize (int8 and fp8) bitwise at the boundary shape and
+   at the largest gradient leaf, ``roundtrip_ef`` bitwise at a bucket's
+   size, the flash-attention backward and the SwiGLU backward at the
+   training shapes; times each beside its bound, its plain version and
+   (attention) SDPA forward + backward;
 4. parity at full width and 2 layers: seeded weights on the card (kernels)
    and a CPU copy (plain versions), prefill and decode logits compared;
 5. serves at full width: one ``build_prefill_step`` call over 8 x 512
    tokens, then the launcher (batch 8, prompt 128, gen 128), with every
    kernel's launch count checked against what the path implies;
-6. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+6a. training parity at full width and 2 layers (2 virtual stages), card vs
+   CPU: one uncompressed gradient (loss and every leaf); one int8 step with
+   error feedback through ``step_fn`` on both sides, taken apart: the loss
+   (tighter than the boundary quantization's own effect on it), the
+   gradient before the wire, the wire bitwise on the card's pre-wire
+   gradient (written-back gradient leaves and residual), and the updated
+   parameters and AdamW moments leaf by leaf;
+6b. trains at full width through ``launch/train``'s path in-process: 32
+   layers, 4 virtual stages x 4 micro-batches, batch 8 x 256, int8 wire,
+   1 warm-up + 4 timed steps, every step's launch counts checked, the loss
+   on step 0's batch lower after one step, peak memory, and a profiler
+   table of one more step;
+7. prints a ``{"kernels": [...]}`` line (all seven kernels, with their
+   launches on the serving and the training path) and, last,
+   ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -30,6 +51,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +72,28 @@ TOL_BF16 = {"attention": 2e-2, "swiglu": 3e-2}
 # full-width 2-layer logits, card (kernels, cuBLAS) vs CPU (plain versions):
 # fp32 sums over 3072 and 8192 terms in other orders through 2 layers
 TOL_LOGITS = 1e-3
+# elementwise SwiGLU backward, kernel vs plain on the card: the same
+# expression; expf/tanhf and fused multiply-adds differ in the last bits of
+# values of order 10
+TOL_ELEMENTWISE = 1e-5
+# full-width 2-layer training, card (kernels, cuBLAS) vs CPU (plain
+# versions): fp32 sums in other orders through 2 layers, the head and the
+# backward.  Loss: relative.  Gradients: per leaf, max |diff| / max |value|.
+# Gradients through int8 boundaries: per leaf, |diff| / |value| in the
+# 2-norm; a boundary code that flips between card and CPU moves a value by
+# a quantization step, and the stages after it densely.  10x the 1.87e-3
+# measured on an H100; a wrong gradient is off by order 1.
+# int8 loss: a boundary value that lands on a rounding edge may quantize
+# one step apart on the two sides; 10x the 1.5e-6 measured on an H100.  The
+# phase also requires the int8 boundaries' own effect on the loss to exceed
+# it, so that a card path that skipped the boundary quantization fails.
+# AdamW on the same gradients: elementwise IEEE ops, the clip norm's sum in
+# another order.
+TOL_TRAIN_LOSS = 1e-4
+TOL_GRAD_REL = 1e-3
+TOL_INT8_LOSS = 1.5e-5
+TOL_INT8_GRAD = 2e-2
+TOL_ADAMW_REL = 1e-6
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -230,6 +274,200 @@ def phase_swiglu(torch, ops, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the training slice's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def wire_rows(torch, g, R, tile, fmt, dev):
+    """(R, tile) float32 rows on the card: normal data at three scales, and
+    the rows that decide rounding: all zero, exact int8 halves, fp8
+    subnormals and their ties (each scaled so its scale is 1.0)."""
+    x = torch.randn((R, tile), generator=g, device=dev)
+    x.mul_(torch.tensor([1e-3, 1.0, 50.0], device=dev)[torch.arange(R, device=dev) % 3, None])
+    top = 128.0 if fmt == "int8" else 256.0
+    col = torch.arange(tile, device=dev, dtype=torch.float32)
+    x[0] = 0.0
+    x[1] = col % 64 - 32 + 0.5
+    x[2] = 2.0 ** -10 * (col % 9) * torch.where(col % 2 == 1, 1.0, -1.0)
+    x[1:3, 0] = top
+    return x
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    view = {1: torch.uint8, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def phase_quant(torch, dev) -> list:
+    """quantize_tiles / dequantize_tiles, int8 and fp8, bitwise against the
+    plain versions at the boundary shape and at the largest gradient leaf;
+    roundtrip_ef at a bucket's size.  Timed at the largest leaf, int8."""
+    from repro_torch.kernels import quant_transfer as qt
+    from repro_torch.kernels.ref import naive_dequantize_tiles, naive_quantize_tiles
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    tile = 256
+    shapes = {"boundary": 2 * 256 * 3072 // tile,        # one (mb, S, D) stage output
+              "largest_leaf": 32 * 3072 * 8192 // tile}   # stacked MLP weight gradient
+    res = {"quantize_tiles": {}, "dequantize_tiles": {}}
+    for fmt in qt.QUANT_FORMATS:
+        for where, R in shapes.items():
+            x = wire_rows(torch, g, R, tile, fmt, dev)
+            q, s = qt.quantize_tiles(x, fmt=fmt)
+            qr, sr = naive_quantize_tiles(x, fmt=fmt)
+            back = qt.dequantize_tiles(q, s)
+            ok = (bitwise_equal(torch, q, qr) and bitwise_equal(torch, s, sr)
+                  and bitwise_equal(torch, back, naive_dequantize_tiles(qr, sr)))
+            print(f"  quantize/dequantize {fmt} {where} ({R}, {tile}): bitwise "
+                  f"{'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                raise AssertionError(f"quant kernels differ from the plain versions: "
+                                     f"{fmt} {where}")
+            if fmt == "int8" and where == "largest_leaf":
+                n = R * tile
+                qb = n + 4 * R
+                for name, fn, plain, nbytes in [
+                        ("quantize_tiles", lambda: qt.quantize_tiles(x, fmt=fmt),
+                         lambda: naive_quantize_tiles(x, fmt=fmt), 4 * n + qb),
+                        ("dequantize_tiles", lambda: qt.dequantize_tiles(q, s),
+                         lambda: naive_dequantize_tiles(q, s), qb + 4 * n)]:
+                    ms = time_ms([fn], torch)
+                    plain_ms = time_ms([plain], torch)
+                    bms, by = bound(nbytes, 0)
+                    res[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                                 "shape": f"({R}, {tile}) f32 <-> int8 (largest gradient leaf)"}
+                    print(f"  {name} int8 ({R}, {tile}): kernel {ms:.4f} ms, plain "
+                          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            if fmt == "int8" and where == "boundary":
+                for name, fn in [("quantize_tiles", lambda: qt.quantize_tiles(x, fmt=fmt)),
+                                 ("dequantize_tiles", lambda: qt.dequantize_tiles(q, s))]:
+                    res[name]["boundary_ms"] = time_ms([fn], torch)
+            del x, q, s, qr, sr, back
+    # the error-feedback round trip at a bucket's size (256 MiB of float32)
+    n = 256 * (1 << 20) // 4
+    x = torch.randn(n, generator=g, device=dev)
+    err = torch.randn(n, generator=g, device=dev).mul_(1e-3)
+    for fmt in qt.QUANT_FORMATS:
+        xh, e2 = qt.roundtrip_ef(x, err, fmt=fmt)
+        comp = x + err
+        qr, sr = naive_quantize_tiles(qt.pack_tiles(comp, tile), fmt=fmt)
+        want = naive_dequantize_tiles(qr, sr).reshape(-1)
+        ok = bitwise_equal(torch, xh, want) and bitwise_equal(torch, e2, comp - want)
+        print(f"  roundtrip_ef {fmt} at {n} elements: bitwise {'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise AssertionError(f"roundtrip_ef {fmt} differs from the plain versions")
+    del x, err, xh, e2, comp, qr, sr, want
+    torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda", "source": "src/repro_torch/csrc/quant_transfer.cu",
+             "replaces": f"src/repro/kernels/quant_transfer.py:{line}", **res[name]}
+            for name, line in (("quantize_tiles", 70), ("dequantize_tiles", 81))]
+
+
+def phase_flash_bwd(torch, ops, F, dev) -> dict:
+    """The flash-attention backward at the training shape, causal, against
+    autograd of the plain version; SDPA forward + backward as yardstick."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    B, S, H, D = 2, 256, 32, 96
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).mul_(0.5) for _ in range(3))
+    dout = torch.randn((B, S, H, D), generator=g, device=dev)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    want = ops.plain_flash_attention_bwd(q, k, v, dout)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    check(err, TOL_FP32, f"flash_attention_bwd ({B}, {S}, {H}, {D}) causal dq/dk/dv")
+
+    for (b, s, h, hkv, d, win, causal) in [(2, 192, 8, 2, 64, None, True),
+                                           (1, 256, 4, 1, 128, 64, True),
+                                           (2, 130, 4, 4, 96, None, False)]:
+        qq = torch.randn((b, s, h, d), generator=g, device=dev).mul_(0.5)
+        kk, vv = (torch.randn((b, s, hkv, d), generator=g, device=dev).mul_(0.5)
+                  for _ in range(2))
+        do = torch.randn((b, s, h, d), generator=g, device=dev)
+        o, ls = flash_attention(qq, kk, vv, causal=causal, window=win, return_lse=True)
+        e = max(max_err(x, y) for x, y in zip(
+            flash_attention_bwd(qq, kk, vv, o, ls, do, causal=causal, window=win),
+            ops.plain_flash_attention_bwd(qq, kk, vv, do, causal=causal, window=win)))
+        check(e, TOL_FP32, f"flash_attention_bwd edge B={b} S={s} H={h} Hkv={hkv} D={d} "
+                           f"window={win} causal={causal}")
+
+    ms = time_ms([lambda: flash_attention_bwd(q, k, v, out, lse, dout)], torch)
+    plain_ms = time_ms([lambda: ops.plain_flash_attention_bwd(q, k, v, dout)], torch)
+    qt_, kt_, vt_ = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dt_ = dout.transpose(1, 2)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt_, kt_, vt_, is_causal=True)
+        torch.autograd.grad(o, (qt_, kt_, vt_), dt_)
+
+    lib_ms = time_ms([sdpa], torch)
+    pairs = B * H * (S * (S + 1) // 2)
+    nbytes = 4 * (8 * B * S * H * D + B * H * S)    # q k v o dO read, dq dk dv written, lse
+    bms, by = bound(nbytes, 10 * D * pairs)
+    print(f"  flash_attention_bwd: kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
+          f"SDPA fwd+bwd {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:27",
+            "note": "the gradient of that kernel's function; repro takes it by XLA autodiff",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms,
+            "shape": f"q/k/v/dO ({B},{S},{H},{D}) causal fp32"}
+
+
+def phase_swiglu_bwd(torch, ops, dev) -> dict:
+    """The SwiGLU backward at the training shape (T = 2 x 256): the
+    elementwise kernel against its plain version, and the whole backward
+    (kernel + products) against autograd of the plain MLP."""
+    from repro_torch.kernels.fused_swiglu import swiglu_bwd
+    from repro_torch.kernels.ref import naive_swiglu_act_bwd, naive_swiglu_bwd
+
+    T, D, Fd = 512, 3072, 8192
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    x = rnd(T, D)
+    w = (rnd(D, Fd, scale=D ** -0.5), rnd(D, Fd, scale=D ** -0.5), rnd(Fd, D, scale=Fd ** -0.5))
+    dout = rnd(T, D)
+    gg, uu = x @ w[0], x @ w[1]
+    dh = dout @ w[2].T
+    got = swiglu_bwd(gg, uu, dh)
+    err = max(max_err(a, b) for a, b in zip(got, naive_swiglu_act_bwd(gg, uu, dh)))
+    check(err, TOL_ELEMENTWISE, f"swiglu_bwd elementwise ({T}, {Fd}) silu")
+    xs = x.detach().requires_grad_(True)
+    ws = [t.detach().requires_grad_(True) for t in w]
+    full = torch.autograd.grad(ops.fused_swiglu_op(xs, *ws), (xs, *ws), dout)
+    e_full = max(max_err(a, b) for a, b in zip(full, naive_swiglu_bwd(x, *w, dout)))
+    check(e_full, TOL_FP32, f"SwiGLU backward (kernel + products) T={T} dx/dWg/dWu/dWd")
+    gg2, uu2, dh2 = (rnd(300, 1000, scale=2.0) for _ in range(3))
+    e = max(max_err(a, b) for a, b in zip(swiglu_bwd(gg2, uu2, dh2, "gelu_tanh"),
+                                           naive_swiglu_act_bwd(gg2, uu2, dh2, "gelu_tanh")))
+    check(e, TOL_ELEMENTWISE, "swiglu_bwd elementwise edge (300, 1000) gelu_tanh")
+
+    ms = time_ms([lambda: swiglu_bwd(gg, uu, dh)], torch)
+    plain_ms = time_ms([lambda: naive_swiglu_act_bwd(gg, uu, dh)], torch)
+    full_ms = time_ms([lambda: torch.autograd.grad(ops.fused_swiglu_op(xs, *ws), (xs, *ws),
+                                                   dout)], torch)
+    plain_full_ms = time_ms([lambda: naive_swiglu_bwd(x, *w, dout)], torch)
+    bms, by = bound(6 * 4 * T * Fd, 0)
+    print(f"  swiglu_bwd ({T}, {Fd}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}); whole MLP fwd+bwd through the kernels {full_ms:.4f} ms, "
+          f"plain autograd {plain_full_ms:.4f} ms")
+    return {"name": "swiglu_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_swiglu_bwd.cu",
+            "replaces": "src/repro/kernels/fused_swiglu.py:19",
+            "note": "the gradient of that kernel's function; repro takes it by XLA autodiff",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"g/u/dh ({T},{Fd}) fp32 silu",
+            "mlp_fwd_bwd_ms": full_ms, "mlp_fwd_bwd_plain_ms": plain_full_ms}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: full-width parity at 2 layers, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -319,9 +557,10 @@ def phase_serve(torch, ops, dev, card: str) -> dict:
     if toks.shape != (prompt + gen, B) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"launcher tokens {toks.shape} out of range")
     steps = res["steps"]
-    expect = {"flash_decode": cfg.n_layers * steps,
-              "fused_swiglu": cfg.n_layers * (steps + 1),
-              "flash_attention": cfg.n_layers}
+    expect = {name: 0 for name in ops.LAUNCHES}      # training kernels: none
+    expect.update({"flash_decode": cfg.n_layers * steps,
+                   "fused_swiglu": cfg.n_layers * (steps + 1),
+                   "flash_attention": cfg.n_layers})
     launches = dict(ops.LAUNCHES)
     print(f"  launches {launches} (expected {expect})")
     if launches != expect:
@@ -336,6 +575,300 @@ def phase_serve(torch, ops, dev, card: str) -> dict:
         print(f"  device busy {device_ms:.3f} ms of the {step_ms:.3f} ms decode step "
               f"({device_ms / step_ms:.1%}; idle {1 - device_ms / step_ms:.1%})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+
+
+def _rel(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-12))
+
+
+def _rel_l2(torch, a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-12))
+
+
+def phase_train_parity(torch, dev) -> None:
+    """Full width, 2 layers, 2 virtual stages x 2 micro-batches, card vs CPU:
+    one uncompressed gradient, then one int8 step with error feedback through
+    ``step_fn``, held against the CPU part by part (loss, gradient before the
+    wire, the wire bitwise, the AdamW update)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamW, tree_leaves, tree_map
+    from repro_torch.runtime.train import (build_train_step, ef_zeros, init_train_state,
+                                           wire_buckets)
+
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=2)
+    B, S, P, M = 2, 64, 2, 2
+    batch_np = SyntheticLM(cfg.vocab_size, S).batch(0, B)
+    cpu = torch.device("cpu")
+    ts_card = build_train_step(cfg, B, stage=P, n_micro=M, device=dev)
+    params, _ = init_train_state(1, ts_card)
+    params_cpu = tree_map(lambda t: t.to(cpu), params)
+    out = []
+    for device, p in ((dev, params), (cpu, params_cpu)):
+        ts = build_train_step(cfg, B, stage=P, n_micro=M, device=device)
+        (loss, _), grads = ts.grad_fn(p, ts.shard_batch(batch_np))
+        out.append((loss.cpu(), [t.cpu() for t in tree_leaves(grads)]))
+        del grads
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    if not bool(torch.isfinite(l_card)) or not all(bool(torch.isfinite(g).all()) for g in g_card):
+        raise AssertionError("non-finite loss or gradient on the card")
+    check(_rel(torch, l_card, l_cpu), TOL_TRAIN_LOSS,
+          f"full-width 2-layer loss card vs CPU (P={P}, M={M}, {B}x{S}), relative")
+    check(max(_rel(torch, a, b) for a, b in zip(g_card, g_cpu)), TOL_GRAD_REL,
+          f"full-width 2-layer gradients card vs CPU, {len(g_card)} leaves, worst relative")
+    del out, g_card, g_cpu
+
+    # one int8 step with error feedback through step_fn on each side; the
+    # optimizer records the (post-wire) gradients it is given
+    seen = {}
+
+    class RecordingAdamW(AdamW):
+        def update(self, grads, state, params):
+            seen["grads"] = [g.detach().to("cpu", copy=True) for g in tree_leaves(grads)]
+            return super().update(grads, state, params)
+
+    res = {}
+    for side, device, p0 in (("card", dev, params), ("cpu", cpu, params_cpu)):
+        opt = RecordingAdamW(lr=1e-3)
+        ts = build_train_step(cfg, B, stage=P, n_micro=M, compress="int8", bucket_mb=256,
+                              optimizer=opt, device=device)
+        p = tree_map(torch.clone, p0)
+        p, st, ef, loss, _ = ts.step_fn(p, opt.init(p), ts.init_ef(), ts.shard_batch(batch_np))
+        res[side] = {"loss": loss.cpu(), "post": seen.pop("grads"),
+                     "ef": {k: e.cpu() for k, e in ef.items()},
+                     "params": [t.cpu() for t in tree_leaves(p)],
+                     "m": [t.cpu() for t in tree_leaves(st.m)],
+                     "v": [t.cpu() for t in tree_leaves(st.v)]}
+        buckets, wire_spec = ts.buckets, ts.spec
+        del p, st, ef
+    card, host = res["card"], res["cpu"]
+    live = all(bool(torch.isfinite(e).all()) for e in card["ef"].values()) and \
+        any(float(e.abs().max()) > 0 for e in card["ef"].values())
+    print(f"  int8 step, error feedback on: {len(card['ef'])} residual buckets on the card, "
+          f"non-zero and finite: {live}")
+    if not live:
+        raise AssertionError("error-feedback residual is zero or not finite on the card")
+
+    effect = _rel(torch, card["loss"], l_card)
+    print(f"  int8 boundaries' effect on the card's loss, relative: {effect:.3e}")
+    if not effect > TOL_INT8_LOSS:
+        raise AssertionError(f"int8 boundaries moved the loss by {effect:.3e}, not more "
+                             f"than TOL_INT8_LOSS {TOL_INT8_LOSS:g}: the loss check "
+                             "could not tell a skipped boundary quantization")
+    check(_rel(torch, card["loss"], host["loss"]), TOL_INT8_LOSS,
+          "full-width 2-layer int8 step loss card vs CPU, relative")
+
+    pre_card = _prewire(torch, card["post"], card["ef"], buckets)
+    pre_cpu = _prewire(torch, host["post"], host["ef"], buckets)
+    print("  int8 step gradients before the wire card vs CPU, worst leaf max|diff| / "
+          f"max|value|: {max(_rel(torch, a, b) for a, b in zip(pre_card, pre_cpu)):.3e}")
+    check(max(_rel_l2(torch, a, b) for a, b in zip(pre_card, pre_cpu)), TOL_INT8_GRAD,
+          "int8 step gradients before the wire card vs CPU, worst leaf |diff| / |value| "
+          "(2-norm)")
+
+    # the CPU wire on the card's own pre-wire gradient gives the card's
+    # written-back gradient leaves and residual, bit for bit
+    wired = [t.clone() for t in pre_card]
+    ef_cpu = wire_buckets(wire_spec, wired, ef_zeros(buckets, cpu), buckets)
+    same = all(torch.equal(a, b) for a, b in zip(wired, card["post"])) and \
+        all(torch.equal(ef_cpu[k], card["ef"][k]) for k in card["ef"])
+    print(f"  int8 bucket wire ({len(buckets)} buckets) card vs CPU on the card's "
+          f"pre-wire gradient: written-back gradients and residuals bitwise equal: {same}")
+    if not same:
+        raise AssertionError("the card's bucket wire disagrees with the CPU's")
+
+    # AdamW on the CPU from the same start on the card's post-wire gradients
+    opt = AdamW(lr=1e-3)
+    p = tree_map(torch.clone, params_cpu)
+    p, st = opt.update([g.clone() for g in card["post"]], opt.init(p), p)
+    for name, mine, theirs in (("parameters", tree_leaves(p), card["params"]),
+                               ("AdamW m", tree_leaves(st.m), card["m"]),
+                               ("AdamW v", tree_leaves(st.v), card["v"])):
+        check(max(_rel(torch, a, b) for a, b in zip(theirs, mine)), TOL_ADAMW_REL,
+              f"int8 step updated {name} card vs CPU AdamW on the same gradients, "
+              f"{len(mine)} leaves, worst relative")
+    del params, params_cpu, res, card, host, pre_card, pre_cpu, wired, p, st
+    torch.cuda.empty_cache()
+
+
+def _prewire(torch, post, ef, buckets) -> list:
+    """The gradient leaves before the wire, from those after it and the
+    residual of a first error-feedback step (zero carried residual): per
+    element ``g = x_hat + (g - x_hat)``, exact for int8, since the quantized
+    value is 0 or within a factor 2 of ``g`` (Sterbenz)."""
+    pre = [t.clone() for t in post]
+    for bi, (_, idxs, sizes) in enumerate(buckets):
+        r = ef[f"bucket{bi}"][0]
+        off = 0
+        for i, n in zip(idxs, sizes):
+            pre[i].view(-1).add_(r[off:off + n])
+            off += n
+    return pre
+
+
+def phase_train(torch, ops, dev, card: str) -> dict:
+    """The slice at full width: ``launch/train``'s path in-process, 1 warm-up
+    step and 4 timed steps, with the launch counts of every step held
+    against what the path implies, the loss on step 0's batch re-measured
+    after one step, peak memory, and a profiler table of one more step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launcher
+
+    cfg = get_config("phi3-mini-3.8b")
+    L, P, M, B, S, steps = cfg.n_layers, 4, 4, 8, 256, 5
+    argv = ["--arch", cfg.name, "--stage", str(P), "--n-micro", str(M), "--global-batch",
+            str(B), "--seq", str(S), "--steps", str(steps), "--compress", "int8",
+            "--bucket-mb", "256", "--no-error-feedback", "--log-every", "1"]
+    marks = []
+    loss_after = {}
+    peaks, resident = [], []
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES)))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        resident.append(torch.cuda.memory_allocated(dev))
+        if step == 0:
+            loss_after[0] = float(ts.loss_fn(params, batch)[0])
+            marks.append(("eval", dict(ops.LAUNCHES)))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step)
+    launches = dict(ops.LAUNCHES)
+    peak = max(peaks + [torch.cuda.max_memory_allocated(dev)])
+    print(f"  card memory: peak of each step {[round(x / 1e9, 3) for x in peaks]} GB; "
+          f"held between steps (params, AdamW m and v) {resident[-1] / 1e9:.3f} GB")
+
+    ts = res["ts"]
+    hops, nb = M * (P - 1), len(ts.buckets)
+    per_step = {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
+                "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
+                "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb}
+    per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
+                "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
+                "dequantize_tiles": hops}
+    prev = {k: 0 for k in launches}
+    for label, snap in marks:
+        delta = {k: snap[k] - prev[k] for k in snap}
+        want = per_eval if label == "eval" else per_step
+        print(f"  launches in {label}: {delta}")
+        if delta != want:
+            raise AssertionError(f"launch counts in {label} {delta} != {want}")
+        prev = snap
+    if prev != launches:
+        raise AssertionError("kernels launched outside the counted steps")
+
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(loss_after[0]):
+        raise AssertionError(f"non-finite training loss {losses}")
+    print(f"  loss on step 0's batch: {losses[0]:.6f} before the first step, "
+          f"{loss_after[0]:.6f} after it")
+    if not loss_after[0] < losses[0]:
+        raise AssertionError("one step did not lower the loss on its own batch")
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    print(f"train phi3-mini-3.8b full width fp32, {P} virtual stages x {M} micro-batches, "
+          f"batch {B}x{S}, int8 wire ({nb} gradient buckets): {ms_step:.1f} ms/step over "
+          f"{res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.3f} GB (reckoned 66-68 GB); losses "
+          f"{[round(x, 6) for x in losses]}; card {card}")
+
+    params, opt_state = res["params"], res["opt_state"]
+    del res
+    batch = ts.shard_batch(SyntheticLM(cfg.vocab_size, S).batch(steps, B))
+    step_memory(torch, ts, params, opt_state, batch, dev)
+    busy_ms, wall_ms = profile_train_step(torch, ts, params, opt_state, batch)
+    del params, opt_state, ts, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gb": peak / 1e9,
+            "busy_ms": busy_ms, "wall_ms": wall_ms, "n_buckets": nb}
+
+
+def step_memory(torch, ts, params, opt_state, batch, dev) -> None:
+    """One more training step taken apart (the body of ``step_fn``), with
+    the card's allocated and peak memory above the held state after each
+    part: where the step's peak comes from."""
+    from repro_torch.optim import AdamW, tree_map
+    from repro_torch.runtime.pipeline import spmd_loss_fn
+    from repro_torch.runtime.train import _bind_grads, wire_buckets
+
+    gb = 1e9
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    parts = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        parts.append(f"{name} {(torch.cuda.memory_allocated(dev) - base) / gb:.3f} "
+                     f"(peak {(torch.cuda.max_memory_allocated(dev) - base) / gb:.3f})")
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads = tree_map(torch.zeros_like, params)
+    bound = _bind_grads(params, grads)
+    mark("gradient buffers")
+    with torch.enable_grad():
+        loss, _ = spmd_loss_fn(ts.spec)(bound, batch)
+        mark("forward")
+        loss.backward()
+    del loss, bound
+    mark("backward")
+    wire_buckets(ts.spec, grads, {}, ts.buckets)
+    mark("bucket wire")
+    AdamW(lr=1e-3).update(grads, opt_state, params)
+    mark("AdamW update")
+    del grads
+    mark("after")
+    print(f"  step memory above the held {base / gb:.3f} GB, GB after each part: "
+          + "; ".join(parts))
+
+
+def profile_train_step(torch, ts, params, opt_state, batch):
+    """``torch.profiler`` trace of one training step: the top kernels by
+    device time and the device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.step_fn(params, opt_state, {}, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us <= 0:
+        print("  profiler trace holds no device time: busy share not measured")
+        return None, wall_ms
+    busy_ms = total_us / 1e3
+    print(f"  train-step trace: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({busy_ms / wall_ms:.1%}; the profiler's own overhead included); top kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} launches  "
+              f"{e.key[:90]}")
+    # the port's own kernels, by the CUDA function names in csrc/
+    ours = {"flash_attention_kernel": "flash_attention", "row_dot_kernel": "flash_attention_bwd",
+            "dkdv_kernel": "flash_attention_bwd", "dq_kernel": "flash_attention_bwd",
+            "gemm_kernel": "fused_swiglu", "skinny_kernel": "fused_swiglu",
+            "swiglu_bwd_": "swiglu_bwd", "dequantize_": "dequantize_tiles",
+            "quantize_": "quantize_tiles"}
+    by_kernel: dict = {}
+    for e in kernels:
+        for tag, name in ours.items():
+            if f"(anonymous namespace)::{tag}" in e.key:
+                ms, n = by_kernel.get(name, (0.0, 0))
+                by_kernel[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+                break
+    print("  the port's kernels in that step: " + "; ".join(
+        f"{name} {ms:.2f} ms / {n} CUDA launches" for name, (ms, n) in sorted(by_kernel.items())))
+    return busy_ms, wall_ms
 
 
 def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
@@ -409,13 +942,25 @@ def main() -> int:
     print("phase 3: kernels against their plain versions")
     entries = [phase_decode(torch, ops, F, dev), phase_flash(torch, ops, F, dev),
                phase_swiglu(torch, ops, dev)]
+    print("phase 3b: training kernels against their plain versions")
+    entries += [*phase_quant(torch, dev), phase_flash_bwd(torch, ops, F, dev),
+                phase_swiglu_bwd(torch, ops, dev)]
     print("phase 4: full-width parity, 2 layers")
     phase_parity(torch, dev)
     print("phase 5: serve at full width")
-    launches = phase_serve(torch, ops, dev, card)
+    serve = phase_serve(torch, ops, dev, card)
+    print("phase 6a: full-width training parity, 2 layers, card vs CPU")
+    phase_train_parity(torch, dev)
+    print("phase 6b: train at full width")
+    train = phase_train(torch, ops, dev, card)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]]}
+        if not any(by_path.values()):
+            raise AssertionError(f"{e['name']} was launched on no main path")
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
         e["card"] = card
+    print(f"smoke run took {time.perf_counter() - t0:.1f}s (build included)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

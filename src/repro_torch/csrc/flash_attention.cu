@@ -21,7 +21,11 @@
 // row sum of the online softmax reduce over the 16 lanes that share a row
 // with warp shuffles.  q/k/v are read in the model layout (B, S, H, D) by
 // strides (no transposed copy) and the ragged tail of S is masked, not
-// padded.  Plain SIMT fp32 FMAs: wgmma/TMA are later work.
+// padded.  Plain SIMT fp32 FMAs: wgmma/TMA are later work.  For training
+// the caller passes a (B, H, S) float32 buffer and the kernel writes each
+// row's logsumexp m + log(l) of the scaled scores there, which the backward
+// (flash_attention_bwd.cu) uses to recompute the probabilities; serving
+// passes null.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -45,7 +49,7 @@ template <typename T, int NDK>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int S, int H, int Hkv, int D, Strides qs, Strides ks,
+                       float* __restrict__ lse, int S, int H, int Hkv, int D, Strides qs, Strides ks,
                        Strides vs, float scale, int causal, int window,
                        float softcap) {
   extern __shared__ float smem[];
@@ -162,6 +166,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((long long)b * H + h) * S + qpos] = m[i] + logf(l[i]);
     T* orow = out + (((long long)b * S + qpos) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < NDK; ++c) {
@@ -172,7 +177,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NDK>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
            int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(2 * BQ * (D + 1) + BK * D + BQ * (BK + 1));
@@ -183,18 +188,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_attention_kernel<T, NDK><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap);
+      static_cast<T*>(out), lse, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int S,
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
              int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, float scale,
              int causal, int window, float softcap, cudaStream_t st) {
-  if (D <= 64) return launch<T, 4>(q, k, v, out, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
-  if (D <= 96) return launch<T, 6>(q, k, v, out, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
-  if (D <= 128) return launch<T, 8>(q, k, v, out, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
-  if (D <= 256) return launch<T, 16>(q, k, v, out, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 64) return launch<T, 4>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 96) return launch<T, 6>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 128) return launch<T, 8>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 256) return launch<T, 16>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -205,17 +210,19 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  q: (B, S, H, D), k/v: (B, S, Hkv, D),
 // each with unit stride on D and (B, S, H) strides in elements in qs/ks/vs.
 // out: (B, S, H, D) contiguous.  window <= 0: no window; softcap <= 0: none.
+// lse: null, or (B, H, S) float32 for the rows' logsumexp.
 int flash_attention(int dtype, const void* q, const void* k, const void* v,
-                    void* out, int B, int S, int H, int Hkv, int D,
+                    void* out, void* lse, int B, int S, int H, int Hkv, int D,
                     const long long* qs, const long long* ks, const long long* vs,
                     float scale, int causal, int window, float softcap,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides q3{qs[0], qs[1], qs[2]}, k3{ks[0], ks[1], ks[2]}, v3{vs[0], vs[1], vs[2]};
+  float* lsef = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
+    return dispatch<float>(q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
+    return dispatch<__nv_bfloat16>(q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-"""Move ``repro``'s parameter and decode-state trees to torch and back.
+"""Move ``repro``'s parameter, decode-state, optimizer-state and
+error-feedback trees to torch and back.
 
 A tree is nested dicts, tuples and lists of numpy arrays (what
 ``jax.device_get`` or ``np.asarray`` gives for ``repro``'s pytrees), with
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.optim import AdamWState
 
 
 def _map(fn, tree):
@@ -59,3 +62,22 @@ def params_to_numpy(tree):
 
 #: ``repro`` decode-state tree (stacked KV caches) -> torch tensors
 states_from_numpy = params_from_numpy
+
+#: ``repro``'s error-feedback tree ``{"bucket<i>": (1, L_i) f32}`` at one
+#: device -> the port's, which has the same keys and shapes
+ef_from_numpy = params_from_numpy
+ef_to_numpy = params_to_numpy
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """``repro``'s ``AdamWState(step, m, v)`` (numpy leaves) -> the port's."""
+    step, m, v = state
+    return AdamWState(array_to_tensor(np.asarray(step, np.int32), device),
+                      params_from_numpy(m, device), params_from_numpy(v, device))
+
+
+def opt_state_to_numpy(state):
+    """The port's ``AdamWState`` -> a ``(step, m, v)`` tuple of numpy trees,
+    in the field order of ``repro``'s ``AdamWState``."""
+    return (tensor_to_array(state.step), params_to_numpy(state.m),
+            params_to_numpy(state.v))

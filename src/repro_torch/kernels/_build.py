@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels under ``csrc/`` (nvcc + ctypes).
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
-into its own shared library:
+Each ``csrc/<name>.cu`` has a plain C interface (one or more entry points,
+listed in :data:`SOURCES`, each with ``argtypes`` in :data:`ARGTYPES`) and
+is compiled on first use into its own shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -26,21 +27,43 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("decode_attention", "flash_attention", "fused_swiglu")
+#: source file -> its C entry points
+SOURCES = {
+    "decode_attention": ("decode_attention",),
+    "flash_attention": ("flash_attention",),
+    "flash_attention_bwd": ("flash_attention_bwd",),
+    "fused_swiglu": ("fused_swiglu",),
+    "fused_swiglu_bwd": ("swiglu_bwd",),
+    "quant_transfer": ("quantize_tiles", "dequantize_tiles"),
+}
+_SOURCE_OF = {entry: src for src, entries in SOURCES.items() for entry in entries}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _L3 = ctypes.POINTER(ctypes.c_longlong)
-# argtypes of each library's C entry point, as declared in its .cu file.
-# Every pointer and the stream are c_void_p, or ctypes would cut them to int.
+# argtypes of each C entry point, as declared in its .cu file.  Every
+# pointer and the stream are c_void_p, or ctypes would cut them to int.
 ARGTYPES = {
     "decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _L3, _L3, _F, _I, _F, _P],
-    "flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _L3, _L3, _L3, _F, _I, _I, _F, _P],
+    "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _L3, _L3, _L3, _L3,
+                            _F, _I, _I, _P],
     "fused_swiglu": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "swiglu_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _P],
+    "quantize_tiles": [_I, _P, _P, _P, _LL, _I, _F, _P],
+    "dequantize_tiles": [_I, _P, _P, _P, _LL, _I, _P],
 }
+
+#: launches of each kernel wrapper since the last ``reset_launches`` (one per
+#: call of a C entry point, however many CUDA launches it makes), counted
+#: by the Python function that calls :func:`launch` for that kernel
+LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+            "fused_swiglu": 0, "swiglu_bwd": 0, "quantize_tiles": 0,
+            "dequantize_tiles": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -85,9 +108,10 @@ def _finish(name: str, proc, out: Path, log: str | None = None) -> None:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(out))
-    entry = getattr(lib, name)
-    entry.argtypes = ARGTYPES[name]
-    entry.restype = ctypes.c_int
+    for entry_name in SOURCES[name]:
+        entry = getattr(lib, entry_name)
+        entry.argtypes = ARGTYPES[entry_name]
+        entry.restype = ctypes.c_int
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     _LIBS[name] = lib
 
@@ -108,15 +132,16 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def launch(name: str, *args) -> None:
-    """Call the C entry point of ``csrc/<name>.cu`` and raise on the
-    ``cudaError_t`` it returns (a refused launch never runs, and a later
-    synchronize would not report it)."""
-    lib = load(name)
-    err = getattr(lib, name)(*args)
+def launch(entry: str, *args) -> None:
+    """Call the C entry point ``entry`` (building its source if needed) and
+    raise on the ``cudaError_t`` it returns (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    src = _SOURCE_OF[entry]
+    lib = load(src)
+    err = getattr(lib, entry)(*args)
     if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg}) at launch")
+        msg = getattr(lib, f"{src}_error_string")(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg}) at launch")
 
 
 def dtype_code(name: str, *tensors) -> int:
@@ -132,6 +157,15 @@ def dtype_code(name: str, *tensors) -> int:
     if dt not in codes:
         raise ValueError(f"{name} takes float32 or bfloat16, not {dt}")
     return codes[dt]
+
+
+def check_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
+                             f"{t.device} and {dev}")
 
 
 def stream_of(t) -> int:

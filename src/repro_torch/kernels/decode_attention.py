@@ -37,6 +37,7 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, scale: float | None = None,
         lens, len_scalar = None, int(cache_len)
     q = q.contiguous()
     out = torch.empty_like(q)
+    _build.LAUNCHES["flash_decode"] += 1
     with torch.cuda.device(q.device):
         _build.launch(
             "decode_attention", code, q.data_ptr(), k_cache.data_ptr(),

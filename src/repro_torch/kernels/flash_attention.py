@@ -1,9 +1,12 @@
-"""Flash attention forward on the card: causal / window / softcap / GQA.
+"""Flash attention on the card: forward and backward kernels, and the
+``autograd.Function`` that joins them.
 
-Python side of ``csrc/flash_attention.cu`` (which carries the design note),
-the port of ``repro.kernels.flash_attention.flash_attention``.  The kernel
-reads q/k/v in the model layout ``(B, S, H, D)`` by strides and masks the
-ragged tail of S instead of padding it.
+Python side of ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
+(which carry the design notes), the port of
+``repro.kernels.flash_attention.flash_attention``.  The kernels read q/k/v
+in the model layout ``(B, S, H, D)`` by strides and mask the ragged tail of
+S instead of padding it.  Under autograd the forward also writes each row's
+logsumexp, and the backward recomputes the probabilities from it.
 """
 
 from __future__ import annotations
@@ -13,28 +16,100 @@ import torch
 from . import _build
 
 
-def flash_attention(q, k, v, *, scale: float | None = None, causal: bool = True,
-                    window: int | None = None, softcap: float | None = None):
-    """q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D) contiguous.
-
-    q head h reads kv head h // (H // Hkv).  CUDA tensors only.
-    """
-    code = _build.dtype_code("flash_attention", q, k, v)
+def _check(name, q, k, v):
+    code = _build.dtype_code(name, q, k, v)
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     if k.shape != (B, S, Hkv, D) or v.shape != k.shape or H % Hkv:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if D > 256 or any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: head_dim must be <= 256 with unit stride")
+        raise ValueError(f"{name}: head_dim must be <= 256 with unit stride")
+    return code
+
+
+def flash_attention(q, k, v, *, scale: float | None = None, causal: bool = True,
+                    window: int | None = None, softcap: float | None = None,
+                    return_lse: bool = False):
+    """q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D) contiguous
+    (and, with ``return_lse``, the (B, H, S) float32 logsumexp of each row's
+    scaled scores).  q head h reads kv head h // (H // Hkv).  CUDA tensors
+    only."""
+    code = _check("flash_attention", q, k, v)
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    _build.LAUNCHES["flash_attention"] += 1
     with torch.cuda.device(q.device):
         _build.launch(
             "flash_attention", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, H, Hkv, D, _build.strides3(q),
-            _build.strides3(k), _build.strides3(v),
-            D ** -0.5 if scale is None else scale, int(causal),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            B, S, H, Hkv, D, _build.strides3(q), _build.strides3(k),
+            _build.strides3(v), D ** -0.5 if scale is None else scale, int(causal),
             -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
             _build.stream_of(q))
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float | None = None,
+                        causal: bool = True, window: int | None = None):
+    """(dq, dk, dv) of :func:`flash_attention` for the cotangent ``dout``,
+    from the forward's ``out`` and ``lse``.  dk/dv are summed over the q
+    heads of each GQA group.  CUDA tensors only; head_dim <= 128."""
+    code = _check("flash_attention_bwd", q, k, v)
+    _build.dtype_code("flash_attention_bwd", q, out, dout)
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    if D > 128:
+        raise NotImplementedError(f"flash_attention backward kernel takes "
+                                  f"head_dim <= 128, not {D}")
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, H, S) \
+            or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: out/dout must match q and lse "
+                         "be (B, H, S) float32")
+    out, lse = out.contiguous(), lse.contiguous()
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    with torch.cuda.device(q.device):
+        _build.launch(
+            "flash_attention_bwd", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, D,
+            _build.strides3(q), _build.strides3(k), _build.strides3(v),
+            _build.strides3(dout), D ** -0.5 if scale is None else scale,
+            int(causal), -1 if window is None else int(window),
+            _build.stream_of(q))
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward: the flash kernel, writing the logsumexp too; backward: the
+    backward kernel.  A softcap has no backward kernel: asking for its
+    gradient raises ``NotImplementedError``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        out, lse = flash_attention(q, k, v, scale=scale, causal=causal,
+                                   window=window, softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (scale, causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        scale, causal, window, softcap = ctx.cfg
+        if softcap is not None:
+            raise NotImplementedError(
+                "flash_attention backward: no kernel for a logit softcap "
+                f"(softcap={softcap}); the port trains only configs without one")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, scale=scale,
+                                         causal=causal, window=window)
+        return dq, dk, dv, None, None, None, None

@@ -2,10 +2,15 @@
 
 Each ``*_op`` takes the model layout (the counterparts of
 ``repro.kernels.ops``).  For a CUDA tensor it launches the hand-written
-kernel and adds one to that kernel's count in :data:`LAUNCHES`; for a CPU
-tensor it runs the plain version (``plain_*`` below, the layout wrappers of
-:mod:`repro_torch.kernels.ref`).  Nothing falls back: a kernel that cannot
-launch raises.
+kernel; for a CPU tensor it runs the plain version (``plain_*`` below, the
+layout wrappers of :mod:`repro_torch.kernels.ref`), which autograd
+differentiates.  On the card, attention and SwiGLU go through
+``autograd.Function``s whose backward is a kernel too whenever a gradient
+may be needed.  Nothing falls back: a kernel that cannot launch raises, and
+a gradient that no kernel covers raises ``NotImplementedError``.
+
+:data:`LAUNCHES` counts the calls of each kernel's C entry point; the
+Python function that makes the call adds the one (``_build.LAUNCHES``).
 
 Unlike ``repro.kernels.ops``, the kernels read (B, S, H, D) and (B, S, Hkv,
 D) by strides, so the CUDA path makes no transposed copy of q/k/v or of the
@@ -16,19 +21,26 @@ from __future__ import annotations
 
 import torch
 
+from ._build import LAUNCHES
 from .decode_attention import flash_decode
-from .flash_attention import flash_attention
-from .fused_swiglu import fused_swiglu
+from .flash_attention import FlashAttentionFn, flash_attention
+from .fused_swiglu import FusedSwigluFn, fused_swiglu
+from .quant_transfer import dequantize_tiles_op, quantize_tiles_op  # noqa: F401
 from .ref import naive_attention, naive_decode, naive_swiglu
 
-#: launches of each kernel since the last :func:`reset_launches` (one per
-#: op call; fused_swiglu's two launches count as one call)
-LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "fused_swiglu": 0}
+__all__ = ["LAUNCHES", "reset_launches", "flash_attention_op", "flash_decode_op",
+           "fused_swiglu_op", "quantize_tiles_op", "dequantize_tiles_op",
+           "plain_flash_attention", "plain_flash_attention_bwd",
+           "plain_flash_decode", "plain_fused_swiglu"]
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def plain_flash_attention(q, k, v, **kw):
@@ -40,6 +52,14 @@ def plain_flash_attention(q, k, v, **kw):
     vf = v.transpose(1, 2).reshape(B * Hkv, S, v.shape[-1])
     out = naive_attention(qf, kf, vf, **kw)
     return out.reshape(B, H, S, -1).transpose(1, 2)
+
+
+def plain_flash_attention_bwd(q, k, v, dout, **kw):
+    """(dq, dk, dv) of :func:`plain_flash_attention`, by autograd."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        return torch.autograd.grad(plain_flash_attention(qq, kk, vv, **kw),
+                                   (qq, kk, vv), dout)
 
 
 def plain_flash_decode(q, k_cache, v_cache, cache_len, **kw):
@@ -59,19 +79,21 @@ def plain_fused_swiglu(x, wg, wu, wd, act: str = "silu"):
     return naive_swiglu(x.reshape(-1, shape[-1]), wg, wu, wd, act).reshape(shape)
 
 
-def flash_attention_op(q, k, v, **kw):
+def flash_attention_op(q, k, v, *, scale=None, causal=True, window=None, softcap=None):
     """q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D)."""
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, **kw)
-    LAUNCHES["flash_attention"] += 1
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, scale, causal, window, softcap)
     return flash_attention(q, k, v, **kw)
 
 
 def flash_decode_op(q, k_cache, v_cache, cache_len, **kw):
-    """q: (B, H, D); caches: (B, S, Hkv, D); cache_len: int or (B,) int32."""
+    """q: (B, H, D); caches: (B, S, Hkv, D); cache_len: int or (B,) int32.
+    Forward only: decoding is never differentiated."""
     if q.device.type == "cpu":
         return plain_flash_decode(q, k_cache, v_cache, cache_len, **kw)
-    LAUNCHES["flash_decode"] += 1
     return flash_decode(q, k_cache, v_cache, cache_len, **kw)
 
 
@@ -79,6 +101,8 @@ def fused_swiglu_op(x, wg, wu, wd, act: str = "silu"):
     """(..., D) layout wrapper."""
     if x.device.type == "cpu":
         return plain_fused_swiglu(x, wg, wu, wd, act)
-    LAUNCHES["fused_swiglu"] += 1
     shape = x.shape
-    return fused_swiglu(x.reshape(-1, shape[-1]), wg, wu, wd, act=act).reshape(shape)
+    x2 = x.reshape(-1, shape[-1])
+    if _needs_grad(x, wg, wu, wd):
+        return FusedSwigluFn.apply(x2, wg, wu, wd, act).reshape(shape)
+    return fused_swiglu(x2, wg, wu, wd, act=act).reshape(shape)

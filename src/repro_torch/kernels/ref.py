@@ -3,7 +3,9 @@
 Same layouts and arithmetic as ``repro.kernels.ref``.  They run on any
 device: the kernel wrappers in :mod:`repro_torch.kernels.ops` take them for
 CPU tensors, and ``chip_smoke.py`` holds each CUDA kernel against them on
-the card.
+the card.  The backward versions (``naive_*_bwd``) are autograd of the
+forward ones; ``repro`` has no backward kernel (it differentiates its XLA
+paths), so they have no counterpart there.
 """
 
 from __future__ import annotations
@@ -82,3 +84,80 @@ def naive_swiglu(x, wg, wu, wd, act: str = "silu"):
     else:
         raise ValueError(f"fused_swiglu has no activation {act!r}")
     return (h @ wd.float()).to(x.dtype)
+
+
+def naive_attention_bwd(q, k, v, dout, **kw):
+    """(dq, dk, dv) of :func:`naive_attention` for the cotangent ``dout``."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = naive_attention(qq, kk, vv, **kw)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def naive_swiglu_bwd(x, wg, wu, wd, dout, act: str = "silu"):
+    """(dx, dwg, dwu, dwd) of :func:`naive_swiglu` for the cotangent ``dout``."""
+    with torch.enable_grad():
+        ts = tuple(t.detach().requires_grad_(True) for t in (x, wg, wu, wd))
+        out = naive_swiglu(*ts, act)
+        return torch.autograd.grad(out, ts, dout)
+
+
+def naive_swiglu_act_bwd(g, u, dh, act: str = "silu"):
+    """The elementwise part of the SwiGLU backward, in float32: from the
+    gate and up products g = x·Wg, u = x·Wu and the hidden cotangent dh,
+    returns (dg, du, h) with h = act(g)·u, du = dh·act(g) and
+    dg = dh·u·act'(g)."""
+    g, u, dh = g.float(), u.float(), dh.float()
+    if act == "silu":
+        s = torch.sigmoid(g)
+        a = g * s
+        da = s * (1.0 + g * (1.0 - s))
+    elif act == "gelu_tanh":
+        c = 0.7978845608028654                       # sqrt(2 / pi)
+        t = torch.tanh(c * (g + 0.044715 * g * g * g))
+        a = 0.5 * g * (1.0 + t)
+        da = 0.5 * (1.0 + t) + 0.5 * g * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * g * g)
+    else:
+        raise ValueError(f"fused_swiglu has no activation {act!r}")
+    return dh * u * da, dh * a, a * u
+
+
+# ---------------------------------------------------------------------------
+# Quantized wire (the counterparts of repro.kernels.ref's)
+# ---------------------------------------------------------------------------
+
+#: power-of-two scale divisor per format: amax / QDIV is exact in fp32, so
+#: the kernel, the plain version and ``repro`` agree bitwise.  int8: amax
+#: maps to +-128, clipped to the symmetric [-127, 127] payload; fp8 (e4m3,
+#: max finite 448): amax maps to +-256.
+_QDIV = {"int8": 128.0, "fp8": 256.0}
+
+
+def quant_scale(amax, fmt: str):
+    """Per-tile scale from the row abs-max; 1.0 for all-zero tiles."""
+    if fmt not in _QDIV:
+        raise ValueError(f"unknown quantization format {fmt!r}")
+    return torch.where(amax > 0, amax / _QDIV[fmt], torch.ones_like(amax))
+
+
+def naive_quantize_tiles(x, *, fmt: str = "int8"):
+    """x: (R, tile) float -> (q (R, tile) int8/fp8 e4m3fn, scales (R, 1) f32).
+
+    The same ops in the same order as ``repro.kernels.ref``:
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    scale = quant_scale(amax, fmt)
+    y = xf / scale
+    if fmt == "int8":
+        q = torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
+    elif fmt == "fp8":
+        q = y.to(torch.float8_e4m3fn)
+    else:
+        raise ValueError(f"unknown quantization format {fmt!r}")
+    return q, scale
+
+
+def naive_dequantize_tiles(q, scales, *, out_dtype=torch.float32):
+    """(q (R, tile), scales (R, 1)) -> (R, tile) ``out_dtype``."""
+    return (q.float() * scales).to(out_dtype)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_decode, attention_forward, init_attention, init_attention_cache
 from .config import AttentionConfig, LayerSpec, ModelConfig
@@ -99,11 +100,21 @@ def apply_period(params, x, positions, cfg: ModelConfig):
     return x
 
 
-def apply_periods(stacked, x, positions, cfg: ModelConfig):
-    """Loop over the stacked periods (``repro``'s scan)."""
+def apply_periods(stacked, x, positions, cfg: ModelConfig, remat: bool = False):
+    """Loop over the stacked periods (``repro``'s scan).  ``remat`` recomputes
+    each period in the backward (one ``torch.utils.checkpoint`` per period,
+    ``repro``'s ``jax.checkpoint(body)``); it applies only while autograd
+    records."""
     for i in range(cfg.n_periods):
-        x = apply_period(tree_index(stacked, i), x, positions, cfg)
+        x = apply_period_remat(tree_index(stacked, i), x, positions, cfg, remat)
     return x
+
+
+def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool):
+    """:func:`apply_period`, checkpointed when ``remat`` and grad mode is on."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(apply_period, params, x, positions, cfg, use_reentrant=False)
+    return apply_period(params, x, positions, cfg)
 
 
 # ---------------------------------------------------------------------------

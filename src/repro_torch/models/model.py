@@ -1,7 +1,10 @@
-"""CausalLM assembly: embedding -> stacked periods -> norm -> head.
+"""CausalLM assembly: embedding -> stacked periods -> norm -> head, and the
+next-token loss.
 
 The text-LM subset of ``repro.models.model`` (single codebook, no frontend
-prefix, no MTP head), with ``repro``'s parameter names and layout.
+prefix, no MTP head), with ``repro``'s parameter names and layout.  The
+loss is computed in sequence chunks, so the (B, S, V) logits exist one
+chunk at a time.
 """
 
 from __future__ import annotations
@@ -49,12 +52,68 @@ def head_logits(params, h, cfg: ModelConfig):
     return logits
 
 
-def model_forward(params, tokens, cfg: ModelConfig):
-    """Backbone forward.  tokens (B, S).  Returns (h (B, S, D), positions)."""
+def model_forward(params, tokens, cfg: ModelConfig, remat: bool = True):
+    """Backbone forward.  tokens (B, S).  Returns (h (B, S, D), positions).
+    ``remat`` checkpoints each period while autograd records."""
     x = embed_tokens(params, tokens, cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return apply_periods(params["periods"], x, positions, cfg), positions
+    return apply_periods(params["periods"], x, positions, cfg, remat), positions
+
+
+def chunked_ce_loss(h, head_w, targets, mask, softcap=None, chunk: int = 2048):
+    """Cross entropy without materialising the full logits.
+
+    h: (B, S, D); head_w: (D, V); targets/mask: (B, S).  Returns (sum_loss,
+    sum_count, sum_correct) as float32 scalars.  S is zero-padded to whole
+    chunks, as ``repro`` pads it.
+    """
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    s_loss = s_cnt = s_acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        ti, mi = targets[:, sl].long(), mask[:, sl]
+        logits = (h[:, sl] @ head_w).float()
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ti[..., None])[..., 0]
+        loss = (lse - gold) * mi
+        acc = (logits.argmax(-1) == ti) * mi
+        s_loss, s_cnt, s_acc = s_loss + loss.sum(), s_cnt + mi.sum(), s_acc + acc.sum()
+    return s_loss, s_cnt, s_acc
+
+
+def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, ce_chunk: int = 2048):
+    """Next-token LM loss.  batch: {"tokens" (B, S), optional "mask" (B, S)}.
+
+    Returns (loss, metrics).  The phi3 path of ``repro.models.model.loss_fn``:
+    multi-codebook tokens and frontend prefixes are refused.
+    """
+    if "prefix" in batch:
+        raise NotImplementedError("frontend prefix embeddings are not ported yet")
+    tokens = batch["tokens"]
+    if tokens.ndim != 2:
+        raise NotImplementedError(f"tokens {tuple(tokens.shape)}: multi-codebook "
+                                  "batches are not ported yet")
+    h, _ = model_forward(params, tokens, cfg, remat)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps, cfg.zero_centered_norm)
+    mask = batch.get("mask", torch.ones_like(tokens))[:, 1:].float()
+    total, count, correct = chunked_ce_loss(h[:, :-1], _head_weight(params, cfg),
+                                            tokens[:, 1:], mask, cfg.logit_softcap,
+                                            ce_chunk)
+    loss = total / torch.clamp(count, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)   # no MoE aux here
+    metrics = {"ce": loss, "aux": aux, "acc": correct / torch.clamp(count, min=1.0),
+               "tokens": count}
+    return loss + aux, metrics
 
 
 def init_decode_states(batch: int, max_len: int, cfg: ModelConfig, device="cuda"):

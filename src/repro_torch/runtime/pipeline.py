@@ -1,0 +1,221 @@
+"""The HPP training runtime on one card: a pipeline of virtual stages.
+
+The one-card counterpart of ``repro.runtime.pipeline``.  There the decoder
+body (stacked periods) is sharded over a ``stage`` mesh axis and a
+``lax.scan`` of M + P - 1 ticks runs one stage forward per device per tick,
+``ppermute``-ing each output to the next stage; ``jax.grad`` of the scan is
+the reverse pipeline.  Here the P stages are *virtual* and run in turn on
+the one card:
+
+* **Virtual stages.**  Stage p owns its uniform slice ``[p*k, (p+1)*k)`` of
+  the padded period stack, as ``prepare_params`` / :func:`pad_periods`
+  lay it out.  Micro-batch m passes stages
+  0 .. P-1.  Only the real (stage, micro-batch) pairs are computed, tick by
+  tick (``scan_ticks(P, M)`` ticks; at tick t stage p runs micro-batch
+  t - p): the bubble ticks that the SPMD scan computes and masks are
+  skipped; their outputs never reached ``outs`` and their aux was masked,
+  so nothing changes.  The attn + MLP models ported so far have no aux
+  loss.
+* **Backward.**  Autograd's reverse of this forward, as ``jax.grad`` of the
+  scan is.  Remat is one ``torch.utils.checkpoint(..., use_reentrant=False)``
+  per period, as ``jax.checkpoint(body)`` is in ``repro``'s stage scan.
+* **Compressed boundary.**  With ``compress`` in {int8, fp8} and P > 1, every
+  stage-to-stage hop goes through :class:`CompressedBoundary`, which stands
+  in for ``compressed_ppermute``: the forward is
+  ``dequantize_op(quantize_op(x))`` on the stage's own (mb, S, D) output,
+  packed into tiles per stage tensor as each device packs its local tensor
+  in ``repro``; the backward is the same round trip on the cotangent (the
+  transpose ``repro`` routes through the inverse permutation).  M (P - 1)
+  hops forward and as many backward per step.
+* **Loss.**  ``repro`` redistributes the last stage's outputs so each stage
+  computes the head and cross entropy on M / P micro-batches, then sums
+  over stages; on one card the head runs once over all M.  The sums are the
+  same up to float reassociation.
+
+Tensor parallelism, vocab padding, heterogeneous per-shard allocations and
+the double-buffered sends are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.schedule import scan_ticks
+from repro_torch.distributed.mesh import MeshPlan
+from repro_torch.kernels.quant_transfer import roundtrip
+from repro_torch.models.blocks import apply_period_remat, tree_index
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import _head_weight, chunked_ce_loss, embed_tokens
+from repro_torch.models.norms import rmsnorm
+from repro_torch.optim import tree_leaves, tree_map
+
+
+def pad_periods(periods, n_periods: int, n_stages: int):
+    """Pad stacked period params with zero (identity) periods to a multiple
+    of n_stages.  Returns (padded_params, valid_mask (padded,) float32)."""
+    padded = -(-n_periods // n_stages) * n_stages
+    pad = padded - n_periods
+    device = tree_leaves(periods)[0].device
+    if pad == 0:
+        return periods, torch.ones((n_periods,), dtype=torch.float32, device=device)
+    padded_params = tree_map(
+        lambda x: torch.cat([x, x.new_zeros((pad, *x.shape[1:]))], dim=0), periods)
+    mask = torch.cat([torch.ones(n_periods), torch.zeros(pad)]).to(device)
+    return padded_params, mask
+
+
+# ---------------------------------------------------------------------------
+# Stage body and the compressed boundary
+# ---------------------------------------------------------------------------
+
+
+def _stage_fn(period_params, x, positions, cfg: ModelConfig, remat: bool):
+    """Apply one stage's periods in order (``period_params``: one tree per
+    period).  Padded periods are zero, i.e. identity, layers; the ported
+    layer kinds carry no aux loss, so there is none to mask."""
+    for pp in period_params:
+        x = apply_period_remat(tree_map(_leaf_per_use, pp), x, positions, cfg, remat)
+    return x
+
+
+def _leaf_per_use(t):
+    """A fresh leaf for a parameter leaf whose ``.grad`` is preset to a
+    buffer (``runtime.train`` binds them so): it shares the storage and the
+    ``.grad`` buffer, so each micro-batch's gradient is added into the
+    buffer as soon as it is computed.  Were the M micro-batches to share one
+    leaf, autograd would first sum their contributions in its input buffers,
+    which at full width held a transient second copy of most of the period
+    gradients.  Any other tensor is returned as it is."""
+    if not (t.is_leaf and t.requires_grad and t.grad is not None):
+        return t
+    fresh = t.detach().requires_grad_(True)
+    fresh.grad = t.grad
+    return fresh
+
+
+class CompressedBoundary(torch.autograd.Function):
+    """quantize -> (the hop) -> dequantize, forward and backward.
+
+    Stands in for ``repro``'s ``compressed_ppermute``: the carried value
+    stays full precision (quantization error enters once per hop), and
+    all-zero tiles round-trip exactly."""
+
+    @staticmethod
+    def forward(ctx, x, fmt: str, tile: int):
+        ctx.fmt, ctx.tile = fmt, tile
+        return roundtrip(x, fmt=fmt, tile=tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        return roundtrip(g, fmt=ctx.fmt, tile=ctx.tile), None, None
+
+
+def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
+                   n_stages: int, remat: bool = True, compress: str = "none",
+                   quant_tile: int = 256):
+    """Run M micro-batches through P virtual stages (synchronous pipeline).
+
+    period_params: list of per-period param trees, ``P * k`` long (stage p
+    owns ``[p*k, (p+1)*k)``); x_micro: (M, mb, S, D).  Returns
+    outs (M, mb, S, D).
+    """
+    M, P = x_micro.shape[0], n_stages
+    k = len(period_params) // P
+    if k * P != len(period_params):
+        raise ValueError(f"{len(period_params)} periods do not split into {P} stages")
+    if compress != "none" and P > 1:
+        def boundary(x):
+            return CompressedBoundary.apply(x, compress, quant_tile)
+    else:
+        def boundary(x):
+            return x
+
+    inflight: dict[int, torch.Tensor] = {}        # micro-batch -> input of its next stage
+    outs: list = [None] * M
+    for t in range(scan_ticks(P, M)):
+        for p in range(P):
+            m = t - p
+            if not 0 <= m < M:
+                continue                         # bubble tick: nothing to compute
+            inp = x_micro[m] if p == 0 else inflight.pop(m)
+            out = _stage_fn(period_params[p * k:(p + 1) * k], inp, positions, cfg, remat)
+            if p < P - 1:
+                inflight[m] = boundary(out)
+            else:
+                outs[m] = out
+    return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# The loss
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """Static configuration of the one-card train step (the fields of
+    ``repro``'s ``TrainSpec`` that this slice runs)."""
+
+    cfg: ModelConfig
+    plan: MeshPlan
+    n_micro: int
+    remat: bool = True
+    ce_chunk: int = 1024
+    # compressed transfers: "none" | "int8" | "fp8" (boundaries and gradient buckets)
+    compress: str = "none"
+    quant_tile: int = 256
+    # gradient-bucket size bound in MiB; None = one bucket per free-axes group
+    bucket_mb: float | None = None
+    # carry the per-bucket quantization residual across steps
+    error_feedback: bool = True
+
+    @property
+    def bucketed(self) -> bool:
+        """True when the gradient path runs per bucket (and the step
+        functions thread an error-feedback tree)."""
+        return self.compress != "none" or self.bucket_mb is not None
+
+
+def period_list(periods) -> list:
+    """The per-period param trees of a stacked tree (views), or ``periods``
+    itself when it is already a list."""
+    if isinstance(periods, list):
+        return periods
+    return [tree_index(periods, i) for i in range(tree_leaves(periods)[0].shape[0])]
+
+
+def spmd_loss_fn(spec: TrainSpec):
+    """Returns ``f(params, batch) -> (loss, metrics)`` on one card.
+
+    params: the prepared tree (periods padded for the stage split;
+    ``periods`` may also be a list of per-period trees).  batch:
+    ``{"tokens": (B, S)}`` on the params' device.
+    """
+    cfg, plan, M = spec.cfg, spec.plan, spec.n_micro
+
+    def fn(params, batch):
+        if "prefix" in batch:
+            raise NotImplementedError("frontend prefix embeddings are not ported yet")
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if B % M:
+            raise ValueError(f"batch {B} does not split into {M} micro-batches")
+        mb = B // M
+        x = embed_tokens(params, tokens, cfg)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(mb, S)
+        periods = period_list(params["periods"])
+        outs = pipeline_apply(periods, x.reshape(M, mb, S, cfg.d_model), positions,
+                              cfg, plan.stage, spec.remat, spec.compress, spec.quant_tile)
+        h = rmsnorm(params["final_norm"], outs.reshape(B, S, cfg.d_model),
+                    cfg.norm_eps, cfg.zero_centered_norm)
+        tgt = tokens[:, 1:]
+        msk = torch.ones(tgt.shape, dtype=torch.float32, device=x.device)
+        loss_sum, cnt_sum, _ = chunked_ce_loss(h[:, :-1], _head_weight(params, cfg), tgt,
+                                               msk, cfg.logit_softcap, spec.ce_chunk)
+        ce = loss_sum / torch.clamp(cnt_sum, min=1.0)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE aux, no MTP
+        return ce, {"ce": ce, "aux": zero, "mtp": zero, "tokens": cnt_sum}
+
+    return fn

@@ -122,3 +122,221 @@ def test_swiglu_kernel_matches_plain(dev, case):
     tol = _tol(dtype, bf16=3e-2)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
+
+
+# ---------------------------------------------------------------------------
+# Training slice: the compressed wire's kernels, the backward kernels, and
+# gradients through the model on the card.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import quant_transfer as qt  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.fused_swiglu import swiglu_bwd  # noqa: E402
+
+
+def wire_rows(rng, R, tile, fmt):
+    """(R, tile) float32 rows with the cases that decide rounding: all-zero
+    rows, exact halves of the int8 step, fp8 subnormals and their ties, and
+    random data at several scales."""
+    x = (rng.standard_normal((R, tile)) * rng.choice([1e-3, 1.0, 50.0], (R, 1)))
+    x = x.astype(np.float32)
+    x[0] = 0.0
+    top = 128.0 if fmt == "int8" else 256.0          # amax -> scale 1.0
+    halves = np.arange(tile, dtype=np.float32) % 64 - 32 + 0.5
+    x[1] = halves
+    x[1, 0] = top
+    sub = np.float32(2.0 ** -9) * (np.arange(tile, dtype=np.float32) % 9) * 0.5
+    x[2] = sub * np.where(np.arange(tile) % 2, 1, -1)
+    x[2, 0] = top
+    x[3] = -x[3]
+    return x
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float8_e4m3fn:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    elif a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("fmt", qt.QUANT_FORMATS)
+@pytest.mark.parametrize("R,tile", [(6144, 256), (19, 64), (40, 384), (8, 1024)])
+def test_quant_kernels_bitwise(dev, fmt, R, tile):
+    rng = np.random.default_rng(R + tile)
+    x = torch.from_numpy(wire_rows(rng, R, tile, fmt))
+    before = dict(ops.LAUNCHES)
+    q, s = qt.quantize_tiles(x.to(dev), fmt=fmt)
+    qr, sr = ref.naive_quantize_tiles(x, fmt=fmt)
+    assert q.dtype == qr.dtype and _bits_equal(q, qr) and _bits_equal(s, sr)
+    back = qt.dequantize_tiles(q, s)
+    assert _bits_equal(back, ref.naive_dequantize_tiles(qr, sr))
+    assert ops.LAUNCHES["quantize_tiles"] == before["quantize_tiles"] + 1
+    assert ops.LAUNCHES["dequantize_tiles"] == before["dequantize_tiles"] + 1
+
+
+@pytest.mark.parametrize("fmt", qt.QUANT_FORMATS)
+def test_roundtrip_ef_card_equals_cpu(dev, fmt):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32))
+    err = torch.from_numpy((rng.standard_normal(1 << 20) * 1e-3).astype(np.float32))
+    xh, e2 = qt.roundtrip_ef(x.to(dev), err.to(dev), fmt=fmt)
+    xr, er = qt.roundtrip_ef(x, err, fmt=fmt)
+    assert _bits_equal(xh, xr) and _bits_equal(e2, er)
+
+
+BWD_CASES = [
+    # (B, S, H, Hkv, D, window, causal, dtype)
+    (2, 256, 32, 32, 96, None, True, torch.float32),     # the slice's training shape
+    (2, 192, 8, 2, 64, None, True, torch.float32),       # GQA, ragged S
+    (1, 256, 4, 1, 128, 64, True, torch.float32),        # MQA + window
+    (2, 130, 2, 2, 64, None, False, torch.float32),      # non-causal, ragged
+    (1, 100, 4, 2, 32, 40, False, torch.float32),        # non-causal window
+    (2, 160, 4, 2, 64, None, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(dev, case):
+    B, S, H, Hkv, D, win, causal, dtype = case
+    rng = np.random.default_rng(4)
+    q = _rand(rng, (B, S, H, D), dev, dtype).requires_grad_(True)
+    k = _rand(rng, (B, S, Hkv, D), dev, dtype).requires_grad_(True)
+    v = _rand(rng, (B, S, Hkv, D), dev, dtype).requires_grad_(True)
+    dout = _rand(rng, (B, S, H, D), dev, dtype, scale=1.0)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    out = ops.flash_attention_op(q, k, v, causal=causal, window=win)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    ref_grads = ops.plain_flash_attention_bwd(q, k, v, dout, causal=causal, window=win)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    for name, a, b in zip("qkv", grads, ref_grads):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+
+
+def test_flash_forward_lse_leaves_output_unchanged(dev):
+    """Serving passes no logsumexp buffer; asking for one changes nothing
+    else, and the logsumexp is that of the scaled, masked scores."""
+    rng = np.random.default_rng(6)
+    q, k, v = (_rand(rng, (2, 200, 8, 96), dev) for _ in range(3))
+    plain_out = flash_attention(q, k, v)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(out, plain_out)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 96 ** -0.5
+    mask = torch.ones(200, 200, dtype=torch.bool, device=dev).tril()
+    want = torch.logsumexp(torch.where(mask, s, -1e30), dim=-1)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+
+
+def test_softcap_gradient_raises(dev):
+    rng = np.random.default_rng(7)
+    q, k, v = (_rand(rng, (1, 64, 2, 64), dev).requires_grad_(True) for _ in range(3))
+    out = ops.flash_attention_op(q, k, v, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu_tanh"])
+def test_swiglu_bwd_kernel_matches_plain(dev, act):
+    rng = np.random.default_rng(8)
+    T, D, F = 512, 256, 1024
+    g, u, dh = (_rand(rng, (T, F), dev, scale=2.0) for _ in range(3))
+    before = ops.LAUNCHES["swiglu_bwd"]
+    got = swiglu_bwd(g, u, dh, act)
+    assert ops.LAUNCHES["swiglu_bwd"] == before + 1
+    for a, b in zip(got, ref.naive_swiglu_act_bwd(g, u, dh, act)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    # the whole backward (kernel + products) against autograd of the plain MLP
+    x = _rand(rng, (T, D), dev, scale=1.0).requires_grad_(True)
+    ws = [_rand(rng, s, dev, scale=s[0] ** -0.5).requires_grad_(True)
+          for s in ((D, F), (D, F), (F, D))]
+    dout = _rand(rng, (T, D), dev, scale=1.0)
+    grads = torch.autograd.grad(ops.fused_swiglu_op(x, *ws, act), (x, *ws), dout)
+    for a, b in zip(grads, ref.naive_swiglu_bwd(x, *ws, dout, act)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_apply_layer_gradients_reach_every_parameter(dev):
+    """Autograd through the kernels on the card: every parameter of a layer
+    gets a gradient, equal to the CPU's (plain versions) within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.blocks import apply_layer, init_layer
+
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    spec = cfg.pattern[0]
+    params = init_layer(torch.Generator().manual_seed(0), cfg, spec, device="cpu")
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(64, dtype=torch.int32).expand(2, 64)
+    res = {}
+    for device in ("cpu", dev):
+        p = {k: {n: t.to(device).requires_grad_(True) for n, t in sub.items()}
+             for k, sub in params.items()}
+        leaves = [t for sub in p.values() for t in sub.values()]
+        out = apply_layer(p, x.to(device), pos.to(device), cfg, spec)
+        res[str(device)] = torch.autograd.grad(out.square().mean(), leaves,
+                                               allow_unused=True)
+    for a, b in zip(res["cpu"], res[str(dev)]):
+        assert b is not None
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+def test_int8_ef_train_step_card_matches_cpu(dev):
+    """One int8 step with error feedback through ``step_fn`` on the card and
+    on the CPU, held part by part: the loss; the gradient before the wire
+    (the written-back leaves plus the first step's residual, exact for
+    int8), in the 2-norm per leaf; the CPU wire on the card's pre-wire gradient, bitwise; AdamW on
+    the card's post-wire gradients."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamW, tree_leaves, tree_map
+    from repro_torch.runtime.train import (build_train_step, ef_zeros, init_train_state,
+                                           wire_buckets)
+
+    cfg = get_smoke_config("phi3-mini-3.8b").replace(n_layers=4)
+    batch_np = SyntheticLM(cfg.vocab_size, 32).batch(0, 4)
+    seen = {}
+
+    class RecordingAdamW(AdamW):
+        def update(self, grads, state, params):
+            seen["post"] = [g.detach().to("cpu", copy=True) for g in tree_leaves(grads)]
+            return super().update(grads, state, params)
+
+    params = None
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        opt = RecordingAdamW(lr=1e-3)
+        ts = build_train_step(cfg, 4, stage=2, n_micro=2, compress="int8", bucket_mb=0.25,
+                              optimizer=opt, device=device)
+        if params is None:
+            params = tree_map(lambda t: t.cpu(), init_train_state(3, ts)[0])
+        p = tree_map(lambda t: t.to(device, copy=True), params)
+        p, st, ef, loss, _ = ts.step_fn(p, opt.init(p), ts.init_ef(), ts.shard_batch(batch_np))
+        pre = [t.clone() for t in seen["post"]]
+        for bi, (_, idxs, sizes) in enumerate(ts.buckets):
+            r, off = ef[f"bucket{bi}"][0].cpu(), 0
+            for i, n in zip(idxs, sizes):
+                pre[i].view(-1).add_(r[off:off + n])
+                off += n
+        out[device.type] = dict(loss=loss.cpu(), pre=pre, post=seen["post"],
+                                ef={k: e.cpu() for k, e in ef.items()},
+                                state=[t.cpu() for t in tree_leaves((p, st.m, st.v))])
+    card, host = out["cuda"], out["cpu"]
+    assert len(ts.buckets) > 2
+    torch.testing.assert_close(card["loss"], host["loss"], atol=0, rtol=1e-5)
+    for a, b in zip(card["pre"], host["pre"]):      # boundary code flips: 2-norm
+        assert float((a - b).norm()) <= 2e-2 * float(b.norm())
+    wired = [t.clone() for t in card["pre"]]
+    ef_cpu = wire_buckets(ts.spec, wired, ef_zeros(ts.buckets, "cpu"), ts.buckets)
+    for a, b in zip(wired, card["post"]):
+        assert torch.equal(a, b)
+    for k, e in card["ef"].items():
+        assert torch.equal(ef_cpu[k], e)
+    opt = AdamW(lr=1e-3)
+    p = tree_map(torch.clone, params)
+    p, st = opt.update([g.clone() for g in card["post"]], opt.init(p), p)
+    for a, b in zip(card["state"], tree_leaves((p, st.m, st.v))):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())

@@ -218,7 +218,8 @@ def test_cpu_path_counts_no_launch_and_kernels_refuse_cpu():
     ops.flash_attention_op(k, k, k)
     ops.fused_swiglu_op(torch.zeros(3, 8), torch.zeros(8, 16), torch.zeros(8, 16),
                         torch.zeros(16, 8))
-    assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0, "fused_swiglu": 0}
+    assert {"flash_decode", "flash_attention", "fused_swiglu"} <= set(ops.LAUNCHES)
+    assert all(n == 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
     with pytest.raises(ValueError, match="CUDA kernel"):
         flash_decode(q, k, k, 4)
     with pytest.raises(ValueError, match="CUDA kernel"):
