@@ -6,7 +6,9 @@
 Drives the port's serving and training paths at the full width of
 ``phi3-mini-3.8b`` (32 layers, d_model 3072, 32 heads x 96, d_ff 8192,
 vocab 32064, fp32, random weights from a seeded ``torch.Generator`` on the
-card):
+card), and serves one 8-layer period of Jamba-1.5-Large without experts at
+its published widths (d_model 8192, 64/8 heads x 128, d_ff 24576, Mamba
+d_inner 16384 and d_state 16, vocab 65536):
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
@@ -22,6 +24,12 @@ card):
    size, the flash-attention backward and the SwiGLU backward at the
    training shapes; times each beside its bound, its plain version and
    (attention) SDPA forward + backward;
+3c. holds the Mamba selective-scan kernel against its plain version at the
+   Jamba prefill's shape (2, 1024, 16384, 16) and at edges (d_state 8,
+   ragged d and S, S = 1, B = 1), timed beside its bound;
+3d. holds the serving kernels against their plain versions at Jamba's
+   shapes (flash attention and decode at head_dim 128, GQA 8; SwiGLU at
+   8192 x 24576), timed;
 4. parity at full width and 2 layers: seeded weights on the card (kernels)
    and a CPU copy (plain versions), prefill and decode logits compared;
 5. serves at full width: one ``build_prefill_step`` call over 8 x 512
@@ -39,9 +47,20 @@ card):
    1 warm-up + 4 timed steps, every step's launch counts checked, the loss
    on step 0's batch lower after one step, peak memory, and a profiler
    table of one more step;
-7. prints a ``{"kernels": [...]}`` line (all seven kernels, with their
-   launches on the serving and the training path) and, last,
-   ``{"ok": true, ...}``.
+7a. Jamba layer parity at full width, card vs CPU: a Mamba+MLP layer and
+   the attention+MLP layer, ``apply_layer`` on (1, 256) tokens, then 8
+   ``decode_layer`` steps from fresh states;
+7b. the 8-layer Jamba period on the card: the last-position logits of
+   ``build_prefill_step`` on (2, 256) tokens against 256 lockstep
+   ``build_serve_step`` steps (the scan kernel against the plain decode
+   recurrence);
+7c. serves the Jamba period at full width: prefill 2 x 1024 timed after a
+   warm-up; lockstep decode at batch 8, prompt 64 + gen 64 (the serve
+   launcher's loop); every kernel's launch count checked; device-busy share
+   of a decode step from a profiler trace;
+8. prints a ``{"kernels": [...]}`` line (all eight kernels, with their
+   launches on the phi3 serving, phi3 training and Jamba serving paths)
+   and, last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -63,6 +82,9 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores (the kernels are SIMT fp32 FMA).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# exponentials per second on the special-function units (132 SMs x 16 per
+# clock at the 1.98 GHz boost clock): the scan's operation bound
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 
 # fp32: kernel and plain version sum in different orders (TF32 off), so they
 # agree to fp32 rounding of sums over head_dim, keys, d_model and d_ff.
@@ -94,12 +116,25 @@ TOL_GRAD_REL = 1e-3
 TOL_INT8_LOSS = 1.5e-5
 TOL_INT8_GRAD = 2e-2
 TOL_ADAMW_REL = 1e-6
+# Mamba scan, kernel vs plain on the card: |diff| <= TOL_SCAN * (1 + |plain|),
+# repro's tolerance for its scan (tests/test_kernels.py); the same sums with
+# expf against torch.exp and fused multiply-adds.
+TOL_SCAN = 2e-4
+# Jamba at full width, max |diff| / max |value|.  Layers card vs CPU (7a):
+# fp32 sums over 8192-24576 terms and the scan's 256 steps in other orders;
+# 15x the 3.3e-06 read on an H100.  Prefill vs lockstep decode on the card
+# (7b), on the logits: the serial scan kernel against the one-step
+# recurrence, flash against decode attention, products at other batch
+# shapes, through 8 layers; 12x the 1.6e-05 read on an H100.
+TOL_JAMBA_LAYER = 5e-5
+TOL_JAMBA_DECODE = 2e-4
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time in ms for the work, and which of bytes/operations sets it."""
+def bound(nbytes: float, flops: float, exps: float = 0) -> tuple[float, str]:
+    """Least time in ms for the work, and which of bytes/operations sets it:
+    ``flops`` fp32 operations and ``exps`` exponentials on the SFU."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = max(flops / PEAK_FP32_FLOPS, exps / PEAK_SFU_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -468,6 +503,134 @@ def phase_swiglu_bwd(torch, ops, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the Mamba scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def check_scan(got, want, what) -> float:
+    """``|got - want| <= TOL_SCAN * (1 + |want|)`` everywhere; returns the
+    max abs error."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    excess = float((diff - TOL_SCAN * want.abs()).max())
+    print(f"  {what}: max abs err {err:.3e}, max(|diff| - {TOL_SCAN:g} |plain|) "
+          f"{excess:.3e} (tol {TOL_SCAN:g})")
+    if not excess <= TOL_SCAN:
+        raise AssertionError(f"{what}: kernel and plain version disagree")
+    return err
+
+
+def phase_mamba(torch, ops, F, dev) -> dict:
+    """The scan at the Jamba prefill's shape and at edges, then timed."""
+    from repro_torch.kernels.ref import MAMBA_EDGE_CASES, mamba_scan_inputs, naive_mamba_scan
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    (B, S, d, N), _ = MAMBA_EDGE_CASES[0]
+    inp = mamba_scan_inputs(randn, B, S, d, N)
+    err = check_scan(ops.mamba_scan_op(*inp), naive_mamba_scan(*inp),
+                     f"mamba_scan ({B}, {S}, {d}, {N})")
+    for shape, what in MAMBA_EDGE_CASES[1:]:
+        e_in = mamba_scan_inputs(randn, *shape)
+        check_scan(ops.mamba_scan_op(*e_in), naive_mamba_scan(*e_in),
+                   f"mamba_scan edge {shape} {what}")
+
+    ms = time_ms([lambda: ops.mamba_scan_op(*inp)], torch)
+    plain_ms = time_ms([lambda: naive_mamba_scan(*inp)], torch)
+    nbytes = 4 * (3 * B * S * d + 2 * B * S * N + d * N)
+    bms, by = bound(nbytes, 6 * B * S * d * N, exps=B * S * d * N)
+    print(f"  mamba_scan: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: bytes {bound(nbytes, 0)[0]:.4f}, exponentials on the SFU "
+          f"{bound(0, 0, exps=B * S * d * N)[0]:.4f})")
+    del inp
+    return {"name": "mamba_scan", "route": "cuda", "source": "src/repro_torch/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:25",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"dt/x ({B},{S},{d}) b/c ({B},{S},{N}) a ({d},{N}) fp32"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the serving kernels at Jamba's shapes
+# ---------------------------------------------------------------------------
+
+
+def phase_jamba_kernels(torch, ops, F, dev, entries: dict) -> None:
+    """Flash attention (2, 1024, 64, 128) GQA 8 causal, decode attention
+    q (8, 64, 128) over a (8, 128, 8, 128) cache, SwiGLU 8192 x 24576 at
+    T = 8 and 2048: each against its plain version, timed beside its bound
+    (and SDPA, with the kv heads repeated outside the timed call); added to
+    the kernel's entry under ``"jamba"``."""
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    B, S, H, Hkv, D = 2, 1024, 64, 8, 128
+    q, k, v = rnd(B, S, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    err = max_err(ops.flash_attention_op(q, k, v), ops.plain_flash_attention(q, k, v))
+    check(err, TOL_FP32, f"flash_attention Jamba ({B}, {S}, {H}/{Hkv}, {D}) causal")
+    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+    ms = time_ms([lambda: ops.flash_attention_op(q, k, v)], torch)
+    plain_ms = time_ms([lambda: ops.plain_flash_attention(q, k, v)], torch)
+    lib_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kt, vt, is_causal=True)], torch)
+    bms, by = bound(4 * (2 * B * S * H * D + 2 * B * S * Hkv * D),
+                    4 * D * B * H * (S * (S + 1) // 2))
+    entries["flash_attention"]["jamba"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms, "shape": f"q ({B},{S},{H},{D}) kv {Hkv} heads causal fp32"}
+    print(f"  flash_attention Jamba: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    del q, k, v, kt, vt
+
+    B, S = 8, 128
+    lens = torch.tensor([128, 1, 17, 64, 100, 127, 90, 33], dtype=torch.int32, device=dev)
+    q, k, v = rnd(B, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    err = max_err(ops.flash_decode_op(q, k, v, lens), ops.plain_flash_decode(q, k, v, lens))
+    check(err, TOL_FP32, f"flash_decode Jamba q ({B}, {H}, {D}) cache ({B}, {S}, {Hkv}, {D})")
+    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    ms = time_ms([lambda: ops.flash_decode_op(q, k, v, lens)], torch)
+    plain_ms = time_ms([lambda: ops.plain_flash_decode(q, k, v, lens)], torch)
+    lib_ms = time_ms([lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                             attn_mask=mask)], torch)
+    total_len = int(lens.sum())
+    bms, by = bound(4 * (2 * B * H * D + 2 * total_len * Hkv * D) + 4 * B,
+                    4 * D * H * total_len)
+    entries["flash_decode"]["jamba"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms,
+        "shape": f"q ({B},{H},{D}) cache ({B},{S},{Hkv},{D}) lens sum {total_len} fp32"}
+    print(f"  flash_decode Jamba: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    del q, k, v, kt, vt
+
+    Dm, Fd = 8192, 24576
+    w = (rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Fd, Dm, scale=Fd ** -0.5))
+    res = {}
+    for T in (8, 2048):
+        x = rnd(T, Dm, scale=1.0)
+        err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
+        check(err, TOL_FP32, f"fused_swiglu Jamba T={T} D={Dm} F={Fd}")
+        ms = time_ms([lambda: ops.fused_swiglu_op(x, *w)], torch)
+        plain_ms = time_ms([lambda: ops.plain_fused_swiglu(x, *w)], torch)
+        bms, by = bound(4 * (3 * Dm * Fd + 2 * T * Dm), 6 * T * Dm * Fd)
+        res["decode" if T == 8 else "prefill"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"x ({T},{Dm}) wg/wu ({Dm},{Fd}) wd ({Fd},{Dm}) fp32"}
+        print(f"  fused_swiglu Jamba T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    entries["fused_swiglu"]["jamba"] = res
+    del w, x
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: full-width parity at 2 layers, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -482,15 +645,7 @@ def phase_parity(torch, dev) -> None:
     B, S, steps = 2, 64, 4
     params = init_model(torch.Generator(device=dev).manual_seed(1), cfg, dev)
     cpu = torch.device("cpu")
-
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, tuple):
-            return tuple(to_cpu(v) for v in tree)
-        return tree.to(cpu)
-
-    params_cpu = to_cpu(params)
+    params_cpu = _tree_to(params, cpu)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(2))
     worst = 0.0
     for device, p in ((dev, params), (cpu, params_cpu)):
@@ -751,10 +906,11 @@ def phase_train(torch, ops, dev, card: str) -> dict:
     hops, nb = M * (P - 1), len(ts.buckets)
     per_step = {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
                 "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
-                "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb}
+                "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
+                "mamba_scan": 0}
     per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
                 "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
-                "dequantize_tiles": hops}
+                "dequantize_tiles": hops, "mamba_scan": 0}
     prev = {k: 0 for k in launches}
     for label, snap in marks:
         delta = {k: snap[k] - prev[k] for k in snap}
@@ -904,6 +1060,145 @@ def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
     return total_us / n_steps / 1e3
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: Jamba-1.5-Large without experts, one 8-layer period
+# ---------------------------------------------------------------------------
+
+
+def phase_jamba_layers(torch, dev) -> None:
+    """Full width, card vs CPU: the Mamba+MLP layer (index 0) and the
+    attention+MLP layer (index 2), made on the card from a seed and copied to
+    the CPU; ``apply_layer`` on (1, 256) tokens, then 8 ``decode_layer``
+    steps at batch 2 from fresh states."""
+    from repro_torch.configs.jamba_1_5_large import config_without_experts
+    from repro_torch.models.blocks import apply_layer, decode_layer, init_layer, init_layer_state
+
+    cfg = config_without_experts()
+    cpu = torch.device("cpu")
+    S, B, steps = 256, 2, 8
+    g = torch.Generator().manual_seed(20)
+    x = torch.randn((1, S, cfg.d_model), generator=g)
+    xs = [torch.randn((B, cfg.d_model), generator=g) for _ in range(steps)]
+    positions = torch.arange(S, dtype=torch.int32)[None]
+    for index in (0, 2):
+        spec = cfg.pattern[index]
+        p_card = init_layer(torch.Generator(device=dev).manual_seed(21 + index), cfg, spec, dev)
+        p_cpu = _tree_to(p_card, cpu)
+        with torch.inference_mode():
+            y_card = apply_layer(p_card, x.to(dev), positions.to(dev), cfg, spec).cpu()
+            y_cpu = apply_layer(p_cpu, x, positions, cfg, spec)
+            if not bool(torch.isfinite(y_card).all()):
+                raise AssertionError(f"non-finite {spec.kind} layer output on the card")
+            check(_rel(torch, y_card, y_cpu), TOL_JAMBA_LAYER,
+                  f"Jamba {spec.kind}+mlp layer apply_layer (1, {S}) card vs CPU, "
+                  "max|diff| / max|value|")
+            st_card = init_layer_state(B, steps, cfg, spec, torch.float32, dev)
+            st_cpu = init_layer_state(B, steps, cfg, spec, torch.float32, cpu)
+            worst = 0.0
+            for t in range(steps):
+                yc, st_card = decode_layer(p_card, xs[t].to(dev), t, st_card, cfg, spec)
+                yh, st_cpu = decode_layer(p_cpu, xs[t], t, st_cpu, cfg, spec)
+                worst = max(worst, _rel(torch, yc.cpu(), yh))
+            check(worst, TOL_JAMBA_LAYER, f"Jamba {spec.kind}+mlp layer {steps} decode_layer "
+                                          f"steps (batch {B}) card vs CPU, worst step")
+        del p_card, p_cpu, st_card, st_cpu
+        torch.cuda.empty_cache()
+
+
+def phase_jamba_serve(torch, ops, dev, card: str) -> dict:
+    """The 8-layer period at full width on the card: 7b, prefill against
+    lockstep decode; 7c, serving (timed prefill 2 x 1024, lockstep decode at
+    batch 8, launch counts, peak memory, device-busy share)."""
+    from repro_torch.configs.jamba_1_5_large import config_without_experts
+    from repro_torch.launch.serve import lockstep_decode
+    from repro_torch.models.model import init_model
+    from repro_torch.runtime.serve import (build_prefill_step, build_serve_step,
+                                           prepare_serve_states)
+
+    cfg = config_without_experts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  weights {n_bytes / 1e9:.3f} GB ({cfg.param_count()} params by repro's count) "
+          f"made on the card in {time.perf_counter() - t0:.2f}s")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(4))
+
+    print("phase 7b: Jamba prefill vs lockstep decode on the card, 8 layers")
+    B, S = 2, 256
+    want = build_prefill_step(cfg, batch_global=B, seq_len=S).step_fn(
+        params, {"tokens": tokens[:B, :S]})
+    ss = build_serve_step(cfg, batch_global=B, cache_len=S)
+    states = prepare_serve_states(cfg, ss.spec.plan, B, S, dev)
+    for t in range(S):
+        logits, states = ss.step_fn(params, tokens[:B, t], t, states)
+    if not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(want).all()):
+        raise AssertionError("non-finite Jamba logits on the card")
+    print(f"  max |logit| {float(want.abs().max()):.4f}")
+    check(_rel(torch, logits, want), TOL_JAMBA_DECODE,
+          f"Jamba prefill ({B}, {S}) last-position logits vs {S} lockstep decode steps, "
+          "max|diff| / max|logit|")
+    del states, logits, want
+
+    print("phase 7c: serve the Jamba period at full width")
+    B, S = 2, 1024
+    pf = build_prefill_step(cfg, batch_global=B, seq_len=S)
+    pf.step_fn(params, {"tokens": tokens[:B]})                    # warm-up
+    torch.cuda.synchronize()
+    batch, prompt, gen = 8, 64, 64
+    device_ms = profile_decode(torch, cfg, params, tokens[:batch, 0], batch, prompt + gen, dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = pf.step_fn(params, {"tokens": tokens[:B]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = dict(ops.LAUNCHES)
+    res = lockstep_decode(cfg, params, batch=batch, prompt_len=prompt, gen=gen,
+                          temperature=0.8, device=dev)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if logits.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"Jamba prefill logits {tuple(logits.shape)} not finite/shaped")
+    toks = res["tokens"]
+    if toks.shape != (prompt + gen, batch) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"Jamba decode tokens {toks.shape} out of range")
+    n_mamba = sum(s.kind == "mamba" for s in cfg.pattern) * cfg.n_periods
+    n_attn = cfg.n_layers - n_mamba
+    steps = res["steps"]
+    want_prefill = {name: 0 for name in ops.LAUNCHES}
+    want_prefill.update(mamba_scan=n_mamba, flash_attention=n_attn, fused_swiglu=cfg.n_layers)
+    want_all = dict(want_prefill, flash_decode=n_attn * steps,
+                    fused_swiglu=cfg.n_layers * (steps + 1))
+    print(f"  launches: prefill {after_prefill} (expected {want_prefill}); prefill + "
+          f"{steps} decode steps {launches} (expected {want_all})")
+    if after_prefill != want_prefill or launches != want_all:
+        raise AssertionError("Jamba serving launch counts differ from the path's")
+    step_ms = res["seconds"] / steps * 1e3
+    print(f"serve Jamba-1.5-Large no-experts 8-layer period full width fp32: prefill "
+          f"{B}x{S} {prefill_ms:.3f} ms; decode {step_ms:.3f} ms/step over {steps} steps "
+          f"(batch {batch}, cache {prompt + gen}); {res['tok_per_s']:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.3f} GB; card {card}")
+    if device_ms is not None:
+        print(f"  device busy {device_ms:.3f} ms of the {step_ms:.3f} ms decode step "
+              f"({device_ms / step_ms:.1%}; idle {1 - device_ms / step_ms:.1%})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -945,6 +1240,10 @@ def main() -> int:
     print("phase 3b: training kernels against their plain versions")
     entries += [*phase_quant(torch, dev), phase_flash_bwd(torch, ops, F, dev),
                 phase_swiglu_bwd(torch, ops, dev)]
+    print("phase 3c: the Mamba scan kernel against its plain version")
+    entries.append(phase_mamba(torch, ops, F, dev))
+    print("phase 3d: serving kernels at Jamba's shapes")
+    phase_jamba_kernels(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 4: full-width parity, 2 layers")
     phase_parity(torch, dev)
     print("phase 5: serve at full width")
@@ -953,8 +1252,12 @@ def main() -> int:
     phase_train_parity(torch, dev)
     print("phase 6b: train at full width")
     train = phase_train(torch, ops, dev, card)
+    print("phase 7a: Jamba layers at full width, card vs CPU")
+    phase_jamba_layers(torch, dev)
+    jamba = phase_jamba_serve(torch, ops, dev, card)
     for e in entries:
-        by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]]}
+        by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
+                   "jamba_serve": jamba[e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")
         e["launches"] = sum(by_path.values())

@@ -24,12 +24,18 @@ NOT_PORTED = (
     "musicgen-large", "deepseek-v3-671b", "internvl2-2b", "deepseek-7b",
     "gemma2-2b",
 )
+# what is missing, where only part of a family is ported
+_MISSING = {
+    "jamba-1.5-large-398b": "its MoE layers (repro's models/moe.py) are not ported; "
+                            "jamba_1_5_large.config_without_experts() is the ported "
+                            "form, with the dense MLP in place of the experts",
+}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; ported: {list(ARCH_IDS)}")
+        why = _MISSING.get(arch, f"ported: {list(ARCH_IDS)}")
+        raise NotImplementedError(f"arch {arch!r} is not ported yet; {why}")
     if arch not in _BY_ID:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_BY_ID)}")
     return _BY_ID[arch].config()

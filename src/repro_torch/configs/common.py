@@ -32,4 +32,6 @@ def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
         kw["pattern"] = tuple(
             dataclasses.replace(s, window=None if s.window is None else 64)
             for s in cfg.pattern)
+    if cfg.mamba is not None:
+        kw["mamba"] = dataclasses.replace(cfg.mamba, d_state=8, chunk=32)
     return cfg.replace(**kw)

@@ -34,6 +34,7 @@ SOURCES = {
     "flash_attention_bwd": ("flash_attention_bwd",),
     "fused_swiglu": ("fused_swiglu",),
     "fused_swiglu_bwd": ("swiglu_bwd",),
+    "mamba_scan": ("mamba_scan",),
     "quant_transfer": ("quantize_tiles", "dequantize_tiles"),
 }
 _SOURCE_OF = {entry: src for src, entries in SOURCES.items() for entry in entries}
@@ -54,6 +55,7 @@ ARGTYPES = {
                             _F, _I, _I, _P],
     "fused_swiglu": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swiglu_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _P],
+    "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "quantize_tiles": [_I, _P, _P, _P, _LL, _I, _F, _P],
     "dequantize_tiles": [_I, _P, _P, _P, _LL, _I, _P],
 }
@@ -63,7 +65,7 @@ ARGTYPES = {
 #: by the Python function that calls :func:`launch` for that kernel
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "flash_attention_bwd": 0,
             "fused_swiglu": 0, "swiglu_bwd": 0, "quantize_tiles": 0,
-            "dequantize_tiles": 0}
+            "dequantize_tiles": 0, "mamba_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -6,8 +6,9 @@ kernel; for a CPU tensor it runs the plain version (``plain_*`` below, the
 layout wrappers of :mod:`repro_torch.kernels.ref`), which autograd
 differentiates.  On the card, attention and SwiGLU go through
 ``autograd.Function``s whose backward is a kernel too whenever a gradient
-may be needed.  Nothing falls back: a kernel that cannot launch raises, and
-a gradient that no kernel covers raises ``NotImplementedError``.
+may be needed; the Mamba scan serves only and has no backward kernel.
+Nothing falls back: a kernel that cannot launch raises, and a gradient that
+no kernel covers raises ``NotImplementedError``.
 
 :data:`LAUNCHES` counts the calls of each kernel's C entry point; the
 Python function that makes the call adds the one (``_build.LAUNCHES``).
@@ -25,11 +26,12 @@ from ._build import LAUNCHES
 from .decode_attention import flash_decode
 from .flash_attention import FlashAttentionFn, flash_attention
 from .fused_swiglu import FusedSwigluFn, fused_swiglu
+from .mamba_scan import mamba_scan
 from .quant_transfer import dequantize_tiles_op, quantize_tiles_op  # noqa: F401
-from .ref import naive_attention, naive_decode, naive_swiglu
+from .ref import naive_attention, naive_decode, naive_mamba_scan, naive_swiglu
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_op", "flash_decode_op",
-           "fused_swiglu_op", "quantize_tiles_op", "dequantize_tiles_op",
+           "fused_swiglu_op", "mamba_scan_op", "quantize_tiles_op", "dequantize_tiles_op",
            "plain_flash_attention", "plain_flash_attention_bwd",
            "plain_flash_decode", "plain_fused_swiglu"]
 
@@ -106,3 +108,15 @@ def fused_swiglu_op(x, wg, wu, wd, act: str = "silu"):
     if _needs_grad(x, wg, wu, wd):
         return FusedSwigluFn.apply(x2, wg, wu, wd, act).reshape(shape)
     return fused_swiglu(x2, wg, wu, wd, act=act).reshape(shape)
+
+
+def mamba_scan_op(dt, b, c, x, a):
+    """dt/x: (B, S, d); b/c: (B, S, N); a: (d, N) -> y (B, S, d), the C·h
+    readout from h = 0.  Forward only on the card: a call that needs a
+    gradient raises ``NotImplementedError``."""
+    if dt.device.type == "cpu":
+        return naive_mamba_scan(dt, b, c, x, a)
+    if _needs_grad(dt, b, c, x, a):
+        raise NotImplementedError("mamba_scan has no backward kernel: the port "
+                                  "serves Mamba layers and does not train them")
+    return mamba_scan(dt, b, c, x, a)

@@ -122,6 +122,43 @@ def naive_swiglu_act_bwd(g, u, dh, act: str = "silu"):
     return dh * u * da, dh * a, a * u
 
 
+def naive_mamba_scan(dt, b, c, x, a):
+    """Step-by-step selective scan, from h = 0.  dt/x: (B, S, d); b/c:
+    (B, S, N); a: (d, N) = -exp(A_log); all float32.  Returns y (B, S, d)
+    with h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t and y_t = h_t . c_t."""
+    B, S, d = dt.shape
+    h = torch.zeros((B, d, a.shape[1]), dtype=torch.float32, device=dt.device)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t]
+        h = h * torch.exp(dt_t[:, :, None] * a) \
+            + (dt_t * x[:, t])[:, :, None] * b[:, t, None, :]
+        ys.append(torch.sum(h * c[:, t, None, :], dim=2))
+    return torch.stack(ys, dim=1)
+
+
+#: (B, S, d, N) shapes at which the scan kernel is held against
+#: :func:`naive_mamba_scan` on the card, each with what it exercises.
+MAMBA_EDGE_CASES = (
+    ((2, 1024, 16384, 16), "the served Jamba prefill's shape"),
+    ((2, 256, 512, 8), "d_state 8"),
+    ((2, 200, 1000, 16), "d not a multiple of the 128-channel block"),
+    ((3, 1, 256, 16), "S = 1"),
+    ((2, 100, 384, 8), "S not a multiple of the 64-step tile"),
+    ((1, 130, 640, 16), "B = 1"),
+)
+
+
+def mamba_scan_inputs(randn, B, S, d, N):
+    """Scan inputs drawn as ``repro``'s scan tests draw them: dt =
+    softplus(N(0, 0.5^2)), b/c/x ~ N(0, 0.5^2), a = -exp(N(0, 0.2^2)).
+    ``randn(shape)`` gives float32 N(0, 1) tensors (from a seeded generator
+    on the device the inputs should lie on)."""
+    dt = F.softplus(0.5 * randn((B, S, d)))
+    b, c, x = (0.5 * randn(s) for s in ((B, S, N), (B, S, N), (B, S, d)))
+    return dt, b, c, x, -torch.exp(0.2 * randn((d, N)))
+
+
 # ---------------------------------------------------------------------------
 # Quantized wire (the counterparts of repro.kernels.ref's)
 # ---------------------------------------------------------------------------

@@ -49,6 +49,41 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def lockstep_decode(cfg, params, *, batch: int, prompt_len: int, gen: int,
+                    temperature: float, device) -> dict:
+    """Decode ``batch`` random prompts (numpy seed 0) in lockstep on
+    ``params``' device: one prompt token per step, then ``gen`` tokens
+    sampled from ``softmax(logits / T)``.  Returns the timing and the
+    (T, B) token array."""
+    from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
+
+    cache_len = prompt_len + gen
+    ss = build_serve_step(cfg, batch_global=batch, cache_len=cache_len)
+    states = prepare_serve_states(cfg, ss.spec.plan, batch, cache_len, device)
+    rng = np.random.RandomState(0)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          size=(prompt_len, batch))).to(device)
+    sampler = torch.Generator(device=device).manual_seed(0)
+
+    seqs = [prompt[t] for t in range(prompt_len)]
+    tok = prompt[0]
+    _sync(device)
+    t0 = time.perf_counter()
+    for pos in range(cache_len - 1):
+        logits, states = ss.step_fn(params, tok, pos, states)
+        if pos + 1 < prompt_len:
+            tok = prompt[pos + 1]
+        else:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=sampler)[:, 0]
+            seqs.append(tok)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    gen_tokens = gen * batch
+    return {"steps": cache_len - 1, "seconds": dt, "tokens": torch.stack(seqs).cpu().numpy(),
+            "tok_per_s": gen_tokens / dt}
+
+
 def main(argv=None) -> dict:
     """Run the launcher; returns the timing and the (T, B) token array."""
     args = _parse(argv)
@@ -58,46 +93,25 @@ def main(argv=None) -> dict:
                          "pass --device cpu to run the plain versions on the CPU")
 
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.mesh import SINGLE
     from repro_torch.models.model import init_model
-    from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cache_len = args.prompt_len + args.gen
-    ss = build_serve_step(cfg, batch_global=args.batch, cache_len=cache_len)
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"arch={cfg.name} serve plan: stage={ss.spec.plan.stage} "
-          f"tp={ss.spec.plan.tp} cache={cache_len} device={dev_name}")
+    print(f"arch={cfg.name} serve plan: stage={SINGLE.stage} tp={SINGLE.tp} "
+          f"cache={cache_len} device={dev_name}")
 
     params = init_model(torch.Generator(device=device).manual_seed(0), cfg, device)
-    states = prepare_serve_states(cfg, ss.spec.plan, args.batch, cache_len, device)
-    rng = np.random.RandomState(0)
-    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size,
-                                          size=(args.prompt_len, args.batch))).to(device)
-    sampler = torch.Generator(device=device).manual_seed(0)
-
-    seqs = [prompt[t] for t in range(args.prompt_len)]
-    tok = prompt[0]
-    _sync(device)
-    t0 = time.perf_counter()
-    for pos in range(cache_len - 1):
-        logits, states = ss.step_fn(params, tok, pos, states)
-        if pos + 1 < args.prompt_len:
-            tok = prompt[pos + 1]
-        else:
-            probs = torch.softmax(logits / args.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=sampler)[:, 0]
-            seqs.append(tok)
-    _sync(device)
-    dt = time.perf_counter() - t0
-    gen_tokens = args.gen * args.batch
+    res = lockstep_decode(cfg, params, batch=args.batch, prompt_len=args.prompt_len,
+                          gen=args.gen, temperature=args.temperature, device=device)
+    dt, steps = res["seconds"], res["steps"]
     print(f"decoded {args.gen} steps x batch {args.batch} in {dt:.3f}s "
-          f"({gen_tokens / dt:.1f} tok/s on {dev_name}; "
-          f"{cache_len - 1} decode steps, {dt / (cache_len - 1) * 1e3:.3f} ms/step)")
-    out = torch.stack(seqs).cpu().numpy()   # (T, B)
-    print("sample sequence 0:", out[:24, 0], "...")
+          f"({res['tok_per_s']:.1f} tok/s on {dev_name}; "
+          f"{steps} decode steps, {dt / steps * 1e3:.3f} ms/step)")
+    print("sample sequence 0:", res["tokens"][:24, 0], "...")
     print("done")
-    return {"steps": cache_len - 1, "seconds": dt, "tokens": out,
-            "tok_per_s": gen_tokens / dt, "device": dev_name}
+    return {**res, "device": dev_name}
 
 
 if __name__ == "__main__":

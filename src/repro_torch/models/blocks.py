@@ -3,8 +3,8 @@
 A model is ``n_periods`` repetitions of ``cfg.pattern``.  As in ``repro``,
 period parameters (and decode states) are stacked along a leading axis; the
 scan over periods becomes a Python loop over views ``leaf[i]`` of the
-stacked tensors, which copies nothing.  Only the attn + dense-MLP layer
-kinds are ported.
+stacked tensors, which copies nothing.  The attention and Mamba mixers
+and the dense MLP are ported (not MoE, not RWKV).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from .attention import attention_decode, attention_forward, init_attention, init
 from .config import AttentionConfig, LayerSpec, ModelConfig
 from .mlp import init_mlp, mlp
 from .norms import init_rmsnorm, rmsnorm
+from .ssm import init_mamba, init_mamba_state, mamba_decode, mamba_forward
 
 
 def _attn_cfg(cfg: ModelConfig, spec: LayerSpec) -> AttentionConfig:
@@ -28,9 +29,9 @@ def _attn_cfg(cfg: ModelConfig, spec: LayerSpec) -> AttentionConfig:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind != "attn" or spec.mlp not in ("mlp", "none"):
+    if spec.kind not in ("attn", "mamba") or spec.mlp not in ("mlp", "none"):
         raise NotImplementedError(f"layer {spec} is not ported yet "
-                                  "(only attn + dense mlp)")
+                                  "(only attn / mamba + dense mlp)")
 
 
 def tree_index(tree, i: int):
@@ -51,8 +52,11 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device="cuda", lead: tupl
     """One layer's params (with ``lead`` stacking axes)."""
     _check_spec(spec)
     d, dtype, zc = cfg.d_model, cfg.pdtype, cfg.zero_centered_norm
-    p = {"norm1": init_rmsnorm(d, dtype, zc, device, lead),
-         "attn": init_attention(gen, d, cfg.attn, dtype, device, lead)}
+    p = {"norm1": init_rmsnorm(d, dtype, zc, device, lead)}
+    if spec.kind == "attn":
+        p["attn"] = init_attention(gen, d, cfg.attn, dtype, device, lead)
+    else:
+        p["mamba"] = init_mamba(gen, d, cfg.mamba, dtype, device, lead)
     if spec.mlp != "none":
         p["norm2"] = init_rmsnorm(d, dtype, zc, device, lead)
         gated = cfg.act in ("silu", "gelu_tanh", "gelu")
@@ -82,7 +86,10 @@ def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
     """x: (B, S, D) -> (B, S, D)."""
     eps, zc = cfg.norm_eps, cfg.zero_centered_norm
     h = rmsnorm(params["norm1"], x, eps, zc)
-    h = attention_forward(params["attn"], h, positions, _attn_cfg(cfg, spec))
+    if spec.kind == "attn":
+        h = attention_forward(params["attn"], h, positions, _attn_cfg(cfg, spec))
+    else:
+        h = mamba_forward(params["mamba"], h, cfg.mamba)
     if cfg.post_norms:
         h = rmsnorm(params["norm1_post"], h, eps, zc)
     x = x + h.to(x.dtype)
@@ -123,12 +130,15 @@ def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool):
 
 
 def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec):
-    """x: (B, D) one position.  Returns (x, state); the cache in ``state``
-    is updated in place."""
+    """x: (B, D) one position.  Returns (x, state); the KV cache or Mamba
+    state in ``state`` is updated in place."""
     eps, zc = cfg.norm_eps, cfg.zero_centered_norm
     h = rmsnorm(params["norm1"], x, eps, zc)
-    h, state_m = attention_decode(params["attn"], h, position, state["mixer"],
-                                  _attn_cfg(cfg, spec))
+    if spec.kind == "attn":
+        h, state_m = attention_decode(params["attn"], h, position, state["mixer"],
+                                      _attn_cfg(cfg, spec))
+    else:
+        h, state_m = mamba_decode(params["mamba"], h, cfg.mamba, state["mixer"])
     if cfg.post_norms:
         h = rmsnorm(params["norm1_post"], h, eps, zc)
     x = x + h.to(x.dtype)
@@ -165,6 +175,8 @@ def decode_periods(stacked, x, position, states, cfg: ModelConfig):
 def init_layer_state(batch: int, max_len: int, cfg: ModelConfig, spec: LayerSpec,
                      dtype, device="cuda", lead: tuple = ()):
     _check_spec(spec)
+    if spec.kind == "mamba":
+        return {"mixer": init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype, device, lead)}
     # Sliding-window layers only need `window` cache slots.
     a = _attn_cfg(cfg, spec)
     eff_len = max_len if a.window is None else min(max_len, a.window)

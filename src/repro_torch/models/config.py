@@ -1,10 +1,11 @@
-"""Model configuration schema (the attn + dense-MLP subset of ``repro``'s).
+"""Model configuration schema (the attn / Mamba + dense-MLP subset of ``repro``'s).
 
-``LayerSpec``, ``ModelConfig`` and ``AttentionConfig`` carry the same field
-names and defaults as ``repro.models``.  Left out: the fields of families
-this port does not have yet (MoE, Mamba, RWKV, MLA, multi-codebook heads,
-frontend prefixes, MTP), which ``repro_torch.configs.get_config`` refuses,
-and ``AttentionConfig.q_chunk``/``kv_chunk``, the block sizes of ``repro``'s
+``LayerSpec``, ``ModelConfig``, ``AttentionConfig`` and ``MambaConfig``
+carry the same field names and defaults as ``repro.models``.  Left out: the
+fields of families this port does not have yet (MoE, RWKV, MLA,
+multi-codebook heads, frontend prefixes, MTP), which
+``repro_torch.configs.get_config`` refuses, and
+``AttentionConfig.q_chunk``/``kv_chunk``, the block sizes of ``repro``'s
 XLA attention (the port's flash kernel tiles by its own).
 """
 
@@ -26,10 +27,30 @@ class AttentionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-1 selective SSM widths (``repro.models.ssm.MambaConfig``).
+
+    ``chunk`` is ``repro``'s scan chunk; the port's scan kernel needs no
+    chunking, but both packages accept only ``S % min(chunk, S) == 0``."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int | None = None      # default: ceil(d_model / 16)
+    chunk: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def get_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank if self.dt_rank is not None else -(-d_model // 16)
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One layer inside the repeating block pattern.
 
-    kind:   'attn' (the only mixer ported so far)
+    kind:   'attn' | 'mamba' (the mixers ported so far)
     mlp:    'mlp' (dense, uses cfg.act/d_ff) | 'none'
     window: sliding-window override for this layer (None = cfg default).
     """
@@ -48,6 +69,7 @@ class ModelConfig:
     vocab_size: int
     d_ff: int
     attn: AttentionConfig | None = None
+    mamba: MambaConfig | None = None
     pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
     act: str = "silu"                # dense MLP activation ('gelu_tanh' => GeGLU)
     norm_eps: float = 1e-6
@@ -84,6 +106,12 @@ class ModelConfig:
             a = self.attn
             n += d * a.n_heads * a.head_dim * 2
             n += d * a.n_kv_heads * a.head_dim * 2
+        elif spec.kind == "mamba":
+            # repro's formula, which leaves out conv_b, dt_bias, A_log and D
+            di = self.mamba.d_inner(d)
+            dtr = self.mamba.get_dt_rank(d)
+            n += d * 2 * di + self.mamba.d_conv * di
+            n += di * (dtr + 2 * self.mamba.d_state) + dtr * di + di * d
         if spec.mlp == "mlp":
             n += 3 * d * self.d_ff
         return n + 2 * d  # norms

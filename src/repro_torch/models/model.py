@@ -124,7 +124,8 @@ def decode_step(params, token, position, states, cfg: ModelConfig):
     """One decode step.
 
     token: (B,) int; position: Python int (lockstep) or (B,) int32 tensor.
-    Returns (logits (B, V) float32, states); the caches are updated in place.
+    Returns (logits (B, V) float32, states); the caches and Mamba
+    states are updated in place.
     """
     x = embed_tokens(params, token, cfg)
     h, states = decode_periods(params["periods"], x, position, states, cfg)

@@ -38,8 +38,11 @@ class ServeStep:
 
 def prepare_serve_states(cfg: ModelConfig, plan: MeshPlan, batch_global: int,
                          cache_len: int, device="cuda"):
-    """Decode state tree: per pattern slot ``{"mixer": {"k", "v"}}`` with
-    leaves (n_periods, B, cache_len, Hkv, D)."""
+    """Decode state tree, one ``{"mixer": ...}`` per pattern slot, leaves
+    stacked on a leading n_periods axis: an attention slot holds ``{"k",
+    "v"}`` (n_periods, B, cache_len, Hkv, D), a Mamba slot ``{"conv"}``
+    (n_periods, B, d_conv - 1, d_inner) and ``{"ssm"}`` (n_periods, B,
+    d_inner, d_state) float32."""
     if plan.stage != 1:
         raise NotImplementedError("pipelined decode is not ported yet")
     return init_period_states(batch_global, cache_len, cfg, cfg.cdtype, device)
@@ -49,8 +52,8 @@ def build_serve_step(cfg: ModelConfig, *, batch_global: int,
                      cache_len: int) -> ServeStep:
     """``step_fn(params, token (B,), position, states) -> (logits (B, V),
     states)``; ``position`` is a Python int shared by the batch (lockstep).
-    Runs where ``params`` and ``states`` live; the caches in ``states`` are
-    updated in place."""
+    Runs where ``params`` and ``states`` live; the caches and Mamba states
+    in ``states`` are updated in place."""
     spec = ServeSpec(cfg=cfg, plan=SINGLE, cache_len=cache_len,
                      batch_global=batch_global)
 

@@ -340,3 +340,68 @@ def test_int8_ef_train_step_card_matches_cpu(dev):
     p, st = opt.update([g.clone() for g in card["post"]], opt.init(p), p)
     for a, b in zip(card["state"], tree_leaves((p, st.m, st.v))):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective scan and the no-experts Jamba slice
+# ---------------------------------------------------------------------------
+
+def _mamba_inputs(rng, B, S, d, N, dev):
+    return ref.mamba_scan_inputs(lambda s: _rand(rng, s, dev, scale=1.0), B, S, d, N)
+
+
+@pytest.mark.parametrize("case", [shape for shape, _ in ref.MAMBA_EDGE_CASES],
+                         ids=[what for _, what in ref.MAMBA_EDGE_CASES])
+def test_mamba_scan_kernel_matches_plain(dev, case):
+    """2e-4 abs + rel, tests/test_kernels.py's tolerance for the scan."""
+    inp = _mamba_inputs(np.random.default_rng(9), *case, dev)
+    before = ops.LAUNCHES["mamba_scan"]
+    out = ops.mamba_scan_op(*inp)
+    assert ops.LAUNCHES["mamba_scan"] == before + 1
+    want = ref.naive_mamba_scan(*inp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=2e-4, rtol=2e-4)
+
+
+def test_mamba_scan_gradient_raises(dev):
+    dt, b, c, x, a = _mamba_inputs(np.random.default_rng(10), 1, 8, 128, 16, dev)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.mamba_scan_op(dt.requires_grad_(True), b, c, x, a)
+
+
+def test_jamba_smoke_serve_card_matches_cpu(dev):
+    """The smoke no-experts Jamba (8 layers, d_state 8) on the card against
+    the CPU: prefill logits and 8 decode steps, 1e-4 abs (fp32 sums in other
+    orders), with the prefill's and each step's launches."""
+    from repro_torch.configs.common import smoke_reduce
+    from repro_torch.configs.jamba_1_5_large import config_without_experts
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import tree_map
+    from repro_torch.runtime.serve import (build_prefill_step, build_serve_step,
+                                           prepare_serve_states)
+
+    cfg = smoke_reduce(config_without_experts())
+    B, S, steps = 2, 64, 8
+    params = init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab_size, (B, S)))
+    out = {}
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        ops.reset_launches()
+        pre = build_prefill_step(cfg, batch_global=B, seq_len=S).step_fn(
+            p, {"tokens": tokens.to(device)})
+        after_prefill = dict(ops.LAUNCHES)
+        ss = build_serve_step(cfg, batch_global=B, cache_len=steps)
+        st = prepare_serve_states(cfg, ss.spec.plan, B, steps, device)
+        dec = [ss.step_fn(p, tokens[:, t].to(device), t, st)[0].cpu() for t in range(steps)]
+        out[str(device)] = (pre.cpu(), dec, after_prefill, dict(ops.LAUNCHES))
+    pre_cpu, dec_cpu, _, _ = out["cpu"]
+    pre_card, dec_card, after_prefill, after_all = out[str(dev)]
+    torch.testing.assert_close(pre_card, pre_cpu, atol=1e-4, rtol=0)
+    for a, b in zip(dec_card, dec_cpu):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    want = {name: 0 for name in ops.LAUNCHES}
+    want.update(mamba_scan=7, flash_attention=1, fused_swiglu=8)
+    assert after_prefill == want
+    want.update(flash_decode=steps, fused_swiglu=8 * (steps + 1))
+    assert after_all == want

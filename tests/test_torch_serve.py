@@ -103,9 +103,13 @@ def test_params_round_trip_bit_exact():
 
 def _default_device_call(entry):
     """Call one entry point without a device argument."""
+    from repro_torch.configs.common import smoke_reduce
+    from repro_torch.configs.jamba_1_5_large import config_without_experts
     from repro_torch.interop import states_from_numpy
     from repro_torch.models.model import init_decode_states, init_model
+    from repro_torch.models.ssm import init_mamba, init_mamba_state
     cfg = get_smoke_config("phi3-mini-3.8b")
+    jamba = smoke_reduce(config_without_experts())
     tree = {"w": (np.ones((2, 3), np.float32),)}
     gen = torch.Generator(device="cuda" if torch.cuda.is_available() else "cpu")
     return {
@@ -113,13 +117,19 @@ def _default_device_call(entry):
         "states_from_numpy": lambda: states_from_numpy(tree),
         "init_model": lambda: init_model(gen.manual_seed(0), cfg),
         "init_decode_states": lambda: init_decode_states(2, 4, cfg),
+        "init_model_jamba": lambda: init_model(gen.manual_seed(0), jamba),
+        "init_decode_states_jamba": lambda: init_decode_states(2, 4, jamba),
+        "init_mamba": lambda: init_mamba(gen.manual_seed(0), jamba.d_model, jamba.mamba),
+        "init_mamba_state": lambda: init_mamba_state(2, jamba.d_model, jamba.mamba),
         "prepare_serve_states": lambda: tserve.prepare_serve_states(
             cfg, tserve.build_serve_step(cfg, batch_global=2, cache_len=4).spec.plan, 2, 4),
     }[entry]()
 
 
 @pytest.mark.parametrize("entry", ["params_from_numpy", "states_from_numpy", "init_model",
-                                   "init_decode_states", "prepare_serve_states"])
+                                   "init_decode_states", "prepare_serve_states",
+                                   "init_model_jamba", "init_decode_states_jamba",
+                                   "init_mamba", "init_mamba_state"])
 def test_entry_points_default_to_card(entry):
     """Without a device argument, tensors go to the card, never to the CPU."""
     if not torch.cuda.is_available():
