@@ -6,9 +6,11 @@
 Drives the port's serving and training paths at the full width of
 ``phi3-mini-3.8b`` (32 layers, d_model 3072, 32 heads x 96, d_ff 8192,
 vocab 32064, fp32, random weights from a seeded ``torch.Generator`` on the
-card), and serves one 8-layer period of Jamba-1.5-Large without experts at
+card), serves one 8-layer period of Jamba-1.5-Large without experts at
 its published widths (d_model 8192, 64/8 heads x 128, d_ff 24576, Mamba
-d_inner 16384 and d_state 16, vocab 65536):
+d_inner 16384 and d_state 16, vocab 65536), and serves the published
+``rwkv6-7b`` whole (32 layers, d_model 4096, 64 heads x 64, d_ff 14336,
+vocab 65536):
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
@@ -30,6 +32,10 @@ d_inner 16384 and d_state 16, vocab 65536):
 3d. holds the serving kernels against their plain versions at Jamba's
    shapes (flash attention and decode at head_dim 128, GQA 8; SwiGLU at
    8192 x 24576), timed;
+3e. holds the RWKV-6 WKV kernel against its plain version at the rwkv6-7b
+   prefill's shape (8, 64, 512, 64), on head views as the model hands them
+   over, and at the shared edge cases (S = 1, S off the staging run, d =
+   32, B = 1, decay logits above 0), timed beside its bound;
 4. parity at full width and 2 layers: seeded weights on the card (kernels)
    and a CPU copy (plain versions), prefill and decode logits compared;
 5. serves at full width: one ``build_prefill_step`` call over 8 x 512
@@ -58,9 +64,23 @@ d_inner 16384 and d_state 16, vocab 65536):
    warm-up; lockstep decode at batch 8, prompt 64 + gen 64 (the serve
    launcher's loop); every kernel's launch count checked; device-busy share
    of a decode step from a profiler trace;
-8. prints a ``{"kernels": [...]}`` line (all eight kernels, with their
-   launches on the phi3 serving, phi3 training and Jamba serving paths)
-   and, last, ``{"ok": true, ...}``.
+8a. rwkv6-7b layer parity at full width, card vs CPU, with the LoRA
+   up-projections drawn non-zero: ``apply_layer`` on (1, 256) tokens, then
+   8 ``decode_layer`` steps from fresh states, and the states written in
+   place;
+8b. all 32 rwkv6-7b layers on the card, prefill against lockstep decode
+   (the WKV kernel against the one-step recurrence; at init no decay logit
+   exceeds 0, so the prefill's clamp does not bind, which the phase checks
+   and prints): each layer's ``apply_layer`` on (2, 256) tokens against 256
+   ``decode_layer`` steps on the same input; the last-position logits of
+   ``build_prefill_step`` against 256 lockstep ``build_serve_step`` steps;
+8c. serves rwkv6-7b at full width: prefill 8 x 512 timed after a warm-up;
+   lockstep decode at batch 8, prompt 64 + gen 64 (the serve launcher's
+   loop); every kernel's launch count checked; device-busy share of a
+   decode step from a profiler trace;
+9. prints a ``{"kernels": [...]}`` line (all nine kernels, with their
+   launches on the phi3 serving, phi3 training, Jamba serving and rwkv6-7b
+   serving paths) and, last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -128,6 +148,23 @@ TOL_SCAN = 2e-4
 # shapes, through 8 layers; 12x the 1.6e-05 read on an H100.
 TOL_JAMBA_LAYER = 5e-5
 TOL_JAMBA_DECODE = 2e-4
+# RWKV-6 WKV, kernel vs plain on the card: |diff| <= TOL_WKV * (1 + |plain|);
+# the same recurrence with the bonus term summed apart and fused
+# multiply-adds.  13x the largest max abs error read on an H100 (3.8e-06, at
+# the prefill's shape; repro's own tolerance, 3e-4, is 80x it).
+TOL_WKV = 5e-5
+# rwkv6-7b at full width, max |diff| / max |value|.  A layer card vs CPU
+# (8a): fp32 sums over 4096-14336 terms and the recurrence in other orders;
+# 15x the 1.3e-06 (apply_layer) and 10x the 2.1e-06 (decode steps) read on
+# an H100, the states 14x the 6.9e-07 read.  Prefill vs lockstep decode on
+# the card (8b): the WKV kernel against the one-step update and products at
+# other batch shapes, each layer on the same input (14x the 6.3e-06 read),
+# then on the logits through 32 layers, which compound the per-layer
+# rounding differences (3.6x the 1.39e-02 read).
+TOL_RWKV_LAYER = 2e-5
+TOL_RWKV_STATE = 1e-5
+TOL_RWKV_LAYER_DECODE = 9e-5
+TOL_RWKV_DECODE = 5e-2
 
 
 def bound(nbytes: float, flops: float, exps: float = 0) -> tuple[float, str]:
@@ -507,15 +544,15 @@ def phase_swiglu_bwd(torch, ops, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_scan(got, want, what) -> float:
-    """``|got - want| <= TOL_SCAN * (1 + |want|)`` everywhere; returns the
-    max abs error."""
+def check_scan(got, want, what, tol=TOL_SCAN) -> float:
+    """``|got - want| <= tol * (1 + |want|)`` everywhere (a recurrence
+    kernel against its plain version); returns the max abs error."""
     diff = (got - want).abs()
     err = float(diff.max())
-    excess = float((diff - TOL_SCAN * want.abs()).max())
-    print(f"  {what}: max abs err {err:.3e}, max(|diff| - {TOL_SCAN:g} |plain|) "
-          f"{excess:.3e} (tol {TOL_SCAN:g})")
-    if not excess <= TOL_SCAN:
+    excess = float((diff - tol * want.abs()).max())
+    print(f"  {what}: max abs err {err:.3e}, max(|diff| - {tol:g} |plain|) "
+          f"{excess:.3e} (tol {tol:g})")
+    if not excess <= tol:
         raise AssertionError(f"{what}: kernel and plain version disagree")
     return err
 
@@ -551,6 +588,45 @@ def phase_mamba(torch, ops, F, dev) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,
             "shape": f"dt/x ({B},{S},{d}) b/c ({B},{S},{N}) a ({d},{N}) fp32"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: the RWKV-6 WKV kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def phase_wkv(torch, ops, dev) -> dict:
+    """The WKV at the rwkv6-7b prefill's shape and at edges, then timed."""
+    from repro_torch.kernels.ref import WKV_EDGE_CASES, wkv6_inputs
+
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for shape, logit_max, what in WKV_EDGE_CASES[1:]:
+        e_in = wkv6_inputs(randn, *shape, logit_max)
+        check_scan(ops.rwkv6_wkv_op(*e_in), ops.plain_rwkv6_wkv(*e_in),
+                   f"rwkv6_wkv edge {shape} {what}", TOL_WKV)
+    (B, H, S, d), logit_max, what = WKV_EDGE_CASES[0]
+    inp = wkv6_inputs(randn, B, H, S, d, logit_max)
+    err = check_scan(ops.rwkv6_wkv_op(*inp), ops.plain_rwkv6_wkv(*inp),
+                     f"rwkv6_wkv ({B}, {H}, {S}, {d}) {what}, head views", TOL_WKV)
+
+    ms = time_ms([lambda: ops.rwkv6_wkv_op(*inp)], torch)
+    plain_ms = time_ms([lambda: ops.plain_rwkv6_wkv(*inp)], torch)
+    nbytes = 4 * (5 * B * H * S * d + H * d)
+    bms, by = bound(nbytes, 4 * B * H * S * d * d)
+    print(f"  rwkv6_wkv: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}: bytes {bound(nbytes, 0)[0]:.4f}, fp32 "
+          f"{bound(0, 4 * B * H * S * d * d)[0]:.4f})")
+    del inp
+    return {"name": "rwkv6_wkv", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6_wkv.py:27",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"r/k/v/w ({B},{H},{S},{d}) head views of ({B},{S},{H * d}), "
+                     f"u ({H},{d}) fp32"}
 
 
 # ---------------------------------------------------------------------------
@@ -907,10 +983,10 @@ def phase_train(torch, ops, dev, card: str) -> dict:
     per_step = {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
                 "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
                 "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
-                "mamba_scan": 0}
+                "mamba_scan": 0, "rwkv6_wkv": 0}
     per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
                 "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
-                "dequantize_tiles": hops, "mamba_scan": 0}
+                "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
     prev = {k: 0 for k in launches}
     for label, snap in marks:
         delta = {k: snap[k] - prev[k] for k in snap}
@@ -1191,6 +1267,162 @@ def phase_jamba_serve(torch, ops, dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: rwkv6-7b, all 32 layers at the published widths
+# ---------------------------------------------------------------------------
+
+
+def phase_rwkv_layer(torch, dev) -> None:
+    """Full width, card vs CPU: the rwkv + rwkv_cm layer, made on the card
+    from a seed with both LoRA up-projections drawn non-zero (they start at
+    zero) and copied to the CPU; ``apply_layer`` on (1, 256) tokens, then 8
+    ``decode_layer`` steps at batch 2 from fresh states."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import apply_layer, decode_layer, init_layer, init_layer_state
+
+    cfg = get_config("rwkv6-7b")
+    spec = cfg.pattern[0]
+    cpu = torch.device("cpu")
+    S, B, steps = 256, 2, 8
+    g = torch.Generator().manual_seed(22)
+    x = torch.randn((1, S, cfg.d_model), generator=g)
+    xs = [torch.randn((B, cfg.d_model), generator=g) for _ in range(steps)]
+    positions = torch.arange(S, dtype=torch.int32)[None]
+    gd = torch.Generator(device=dev).manual_seed(23)
+    p_card = init_layer(gd, cfg, spec, dev)
+    p_card["rwkv_tm"]["mix_lora_b"].normal_(0.0, 0.1, generator=gd)
+    p_card["rwkv_tm"]["w_lora_b"].normal_(0.0, 0.5, generator=gd)
+    p_cpu = _tree_to(p_card, cpu)
+    with torch.inference_mode():
+        y_card = apply_layer(p_card, x.to(dev), positions.to(dev), cfg, spec).cpu()
+        y_cpu = apply_layer(p_cpu, x, positions, cfg, spec)
+        if not bool(torch.isfinite(y_card).all()):
+            raise AssertionError("non-finite rwkv layer output on the card")
+        check(_rel(torch, y_card, y_cpu), TOL_RWKV_LAYER,
+              f"rwkv6-7b layer apply_layer (1, {S}) card vs CPU, max|diff| / max|value|")
+        st_card = init_layer_state(B, steps, cfg, spec, torch.float32, dev)
+        st_cpu = init_layer_state(B, steps, cfg, spec, torch.float32, cpu)
+        worst = 0.0
+        for t in range(steps):
+            yc, _ = decode_layer(p_card, xs[t].to(dev), t, st_card, cfg, spec)
+            yh, _ = decode_layer(p_cpu, xs[t], t, st_cpu, cfg, spec)
+            worst = max(worst, _rel(torch, yc.cpu(), yh))
+        worst_state = max(_rel(torch, a.cpu(), b) for a, b in zip(_leaves(st_card),
+                                                                   _leaves(st_cpu)))
+        check(worst, TOL_RWKV_LAYER, f"rwkv6-7b layer {steps} decode_layer steps (batch {B}) "
+                                     "card vs CPU, worst step")
+        check(worst_state, TOL_RWKV_STATE, "rwkv6-7b layer decode states (mixer shift and "
+                                           "wkv, cm shift, written in place) card vs CPU")
+    del p_card, p_cpu, st_card, st_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_rwkv_serve(torch, ops, dev, card: str) -> dict:
+    """All 32 layers at full width on the card: 8b, prefill against lockstep
+    decode; 8c, serving (timed prefill 8 x 512, lockstep decode at batch 8,
+    launch counts, peak memory, device-busy share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lockstep_decode
+    from repro_torch.models.blocks import apply_layer, decode_layer, init_layer_state, tree_index
+    from repro_torch.models.model import embed_tokens, init_model
+    from repro_torch.runtime.serve import (build_prefill_step, build_serve_step,
+                                           prepare_serve_states)
+
+    cfg = get_config("rwkv6-7b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  weights {n_bytes / 1e9:.3f} GB ({cfg.param_count()} params by repro's count) "
+          f"made on the card in {time.perf_counter() - t0:.2f}s")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+
+    print(f"phase 8b: rwkv6-7b prefill vs lockstep decode on the card, {cfg.n_layers} layers")
+    tm = params["periods"]["layers"][0]["rwkv_tm"]
+    w0_max = float(tm["w0"].max())
+    if bool(tm["w_lora_b"].any()) or not w0_max < 0:
+        raise AssertionError("init weights put a decay logit above 0")
+    print(f"  precondition: w_lora_b is 0 and w0 <= {w0_max:.4f} in every layer, so every "
+          "decay logit is w0 < 0 and the prefill clamp to [-20, 0] does not bind")
+    B, S = 2, 256
+    spec = cfg.pattern[0]
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    with torch.inference_mode():
+        # layer by layer, on the prefill's own hidden states: the two forms
+        # of each layer meet the same input, so errors do not compound
+        x, worst = embed_tokens(params, tokens[:B, :S], cfg), 0.0
+        for i in range(cfg.n_layers):
+            p = tree_index(params["periods"], i)["layers"][0]
+            y = apply_layer(p, x, positions, cfg, spec)
+            st = init_layer_state(B, S, cfg, spec, cfg.cdtype, dev)
+            ys = torch.stack([decode_layer(p, x[:, t], t, st, cfg, spec)[0]
+                              for t in range(S)], dim=1)
+            worst, x = max(worst, _rel(torch, ys, y)), y
+        check(worst, TOL_RWKV_LAYER_DECODE,
+              f"rwkv6-7b each of the {cfg.n_layers} layers, apply_layer ({B}, {S}) vs {S} "
+              "decode_layer steps on the same input, worst layer, max|diff| / max|value|")
+        del x, y, ys, st
+    want = build_prefill_step(cfg, batch_global=B, seq_len=S).step_fn(
+        params, {"tokens": tokens[:B, :S]})
+    ss = build_serve_step(cfg, batch_global=B, cache_len=S)
+    states = prepare_serve_states(cfg, ss.spec.plan, B, S, dev)
+    for t in range(S):
+        logits, _ = ss.step_fn(params, tokens[:B, t], t, states)
+    if not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(want).all()):
+        raise AssertionError("non-finite rwkv6-7b logits on the card")
+    print(f"  max |logit| {float(want.abs().max()):.4f}")
+    check(_rel(torch, logits, want), TOL_RWKV_DECODE,
+          f"rwkv6-7b prefill ({B}, {S}) last-position logits vs {S} lockstep decode steps "
+          f"through {cfg.n_layers} layers, max|diff| / max|logit|")
+    del states, logits, want
+
+    print("phase 8c: serve rwkv6-7b at full width")
+    B, S = 8, 512
+    pf = build_prefill_step(cfg, batch_global=B, seq_len=S)
+    pf.step_fn(params, {"tokens": tokens})                        # warm-up
+    torch.cuda.synchronize()
+    batch, prompt, gen = 8, 64, 64
+    device_ms = profile_decode(torch, cfg, params, tokens[:batch, 0], batch, prompt + gen, dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = pf.step_fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = dict(ops.LAUNCHES)
+    res = lockstep_decode(cfg, params, batch=batch, prompt_len=prompt, gen=gen,
+                          temperature=0.8, device=dev)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if logits.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"rwkv6-7b prefill logits {tuple(logits.shape)} not finite/shaped")
+    toks = res["tokens"]
+    if toks.shape != (prompt + gen, batch) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"rwkv6-7b decode tokens {toks.shape} out of range")
+    steps = res["steps"]
+    want_launches = {name: 0 for name in ops.LAUNCHES}
+    want_launches["rwkv6_wkv"] = cfg.n_layers
+    print(f"  launches: prefill {after_prefill}; prefill + {steps} decode steps {launches} "
+          f"(expected {want_launches} for both: the WKV once per layer in the prefill, no "
+          "kernel in the plain-torch decode step)")
+    if after_prefill != want_launches or launches != want_launches:
+        raise AssertionError("rwkv6-7b serving launch counts differ from the path's")
+    step_ms = res["seconds"] / steps * 1e3
+    print(f"serve rwkv6-7b full width fp32: prefill {B}x{S} {prefill_ms:.3f} ms; decode "
+          f"{step_ms:.3f} ms/step over {steps} steps (batch {batch}, prompt {prompt} + gen "
+          f"{gen}); {res['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.3f} GB; card {card}")
+    if device_ms is not None:
+        print(f"  device busy {device_ms:.3f} ms of the {step_ms:.3f} ms decode step "
+              f"({device_ms / step_ms:.1%}; idle {1 - device_ms / step_ms:.1%})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1242,6 +1474,8 @@ def main() -> int:
                 phase_swiglu_bwd(torch, ops, dev)]
     print("phase 3c: the Mamba scan kernel against its plain version")
     entries.append(phase_mamba(torch, ops, F, dev))
+    print("phase 3e: the RWKV-6 WKV kernel against its plain version")
+    entries.append(phase_wkv(torch, ops, dev))
     print("phase 3d: serving kernels at Jamba's shapes")
     phase_jamba_kernels(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 4: full-width parity, 2 layers")
@@ -1255,9 +1489,12 @@ def main() -> int:
     print("phase 7a: Jamba layers at full width, card vs CPU")
     phase_jamba_layers(torch, dev)
     jamba = phase_jamba_serve(torch, ops, dev, card)
+    print("phase 8a: an rwkv6-7b layer at full width, card vs CPU")
+    phase_rwkv_layer(torch, dev)
+    rwkv = phase_rwkv_serve(torch, ops, dev, card)
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
-                   "jamba_serve": jamba[e["name"]]}
+                   "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")
         e["launches"] = sum(by_path.values())

@@ -34,4 +34,7 @@ def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
             for s in cfg.pattern)
     if cfg.mamba is not None:
         kw["mamba"] = dataclasses.replace(cfg.mamba, d_state=8, chunk=32)
+    if cfg.rwkv is not None:
+        kw["rwkv"] = dataclasses.replace(cfg.rwkv, head_dim=32, decay_lora=16,
+                                         mix_lora=8, chunk=16)
     return cfg.replace(**kw)

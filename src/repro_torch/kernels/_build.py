@@ -36,6 +36,7 @@ SOURCES = {
     "fused_swiglu_bwd": ("swiglu_bwd",),
     "mamba_scan": ("mamba_scan",),
     "quant_transfer": ("quantize_tiles", "dequantize_tiles"),
+    "rwkv6_wkv": ("rwkv6_wkv",),
 }
 _SOURCE_OF = {entry: src for src, entries in SOURCES.items() for entry in entries}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +59,7 @@ ARGTYPES = {
     "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "quantize_tiles": [_I, _P, _P, _P, _LL, _I, _F, _P],
     "dequantize_tiles": [_I, _P, _P, _P, _LL, _I, _P],
+    "rwkv6_wkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L3, _L3, _L3, _L3, _P],
 }
 
 #: launches of each kernel wrapper since the last ``reset_launches`` (one per
@@ -65,7 +67,7 @@ ARGTYPES = {
 #: by the Python function that calls :func:`launch` for that kernel
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "flash_attention_bwd": 0,
             "fused_swiglu": 0, "swiglu_bwd": 0, "quantize_tiles": 0,
-            "dequantize_tiles": 0, "mamba_scan": 0}
+            "dequantize_tiles": 0, "mamba_scan": 0, "rwkv6_wkv": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -6,7 +6,8 @@ kernel; for a CPU tensor it runs the plain version (``plain_*`` below, the
 layout wrappers of :mod:`repro_torch.kernels.ref`), which autograd
 differentiates.  On the card, attention and SwiGLU go through
 ``autograd.Function``s whose backward is a kernel too whenever a gradient
-may be needed; the Mamba scan serves only and has no backward kernel.
+may be needed; the Mamba scan and the RWKV WKV serve only and have no
+backward kernel.
 Nothing falls back: a kernel that cannot launch raises, and a gradient that
 no kernel covers raises ``NotImplementedError``.
 
@@ -28,12 +29,13 @@ from .flash_attention import FlashAttentionFn, flash_attention
 from .fused_swiglu import FusedSwigluFn, fused_swiglu
 from .mamba_scan import mamba_scan
 from .quant_transfer import dequantize_tiles_op, quantize_tiles_op  # noqa: F401
-from .ref import naive_attention, naive_decode, naive_mamba_scan, naive_swiglu
+from .ref import naive_attention, naive_decode, naive_mamba_scan, naive_swiglu, naive_wkv6
+from .rwkv6_wkv import rwkv6_wkv
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_op", "flash_decode_op",
-           "fused_swiglu_op", "mamba_scan_op", "quantize_tiles_op", "dequantize_tiles_op",
-           "plain_flash_attention", "plain_flash_attention_bwd",
-           "plain_flash_decode", "plain_fused_swiglu"]
+           "fused_swiglu_op", "mamba_scan_op", "rwkv6_wkv_op", "quantize_tiles_op",
+           "dequantize_tiles_op", "plain_flash_attention", "plain_flash_attention_bwd",
+           "plain_flash_decode", "plain_fused_swiglu", "plain_rwkv6_wkv"]
 
 
 def reset_launches() -> None:
@@ -81,6 +83,14 @@ def plain_fused_swiglu(x, wg, wu, wd, act: str = "silu"):
     return naive_swiglu(x.reshape(-1, shape[-1]), wg, wu, wd, act).reshape(shape)
 
 
+def plain_rwkv6_wkv(r, k, v, w, u):
+    """(B, H, S, d) layout around ``naive_wkv6`` (heads into the batch);
+    u (H, d) is shared by the batch."""
+    B, H, S, d = r.shape
+    flat = (t.reshape(B * H, S, d) for t in (r, k, v, w))
+    return naive_wkv6(*flat, u.repeat(B, 1)).reshape(B, H, S, d)
+
+
 def flash_attention_op(q, k, v, *, scale=None, causal=True, window=None, softcap=None):
     """q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D)."""
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
@@ -120,3 +130,15 @@ def mamba_scan_op(dt, b, c, x, a):
         raise NotImplementedError("mamba_scan has no backward kernel: the port "
                                   "serves Mamba layers and does not train them")
     return mamba_scan(dt, b, c, x, a)
+
+
+def rwkv6_wkv_op(r, k, v, w, u):
+    """r/k/v/w: (B, H, S, d), w the per-step decay; u: (H, d) -> (B, H, S, d)
+    float32, the WKV output from zero state.  Forward only on the card: a
+    call that needs a gradient raises ``NotImplementedError``."""
+    if r.device.type == "cpu":
+        return plain_rwkv6_wkv(r, k, v, w, u)
+    if _needs_grad(r, k, v, w, u):
+        raise NotImplementedError("rwkv6_wkv has no backward kernel: the port serves "
+                                  "RWKV layers and does not train them")
+    return rwkv6_wkv(r, k, v, w, u)

@@ -159,6 +159,49 @@ def mamba_scan_inputs(randn, B, S, d, N):
     return dt, b, c, x, -torch.exp(0.2 * randn((d, N)))
 
 
+def naive_wkv6(r, k, v, w, u):
+    """Step-by-step WKV-6 recurrence from S = 0.  r/k/v/w: (BH, S, d) with w
+    the per-step decay; u: (BH, d).  Returns (BH, S, d) float32 with
+    out_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t) and S_t = diag(w_t) S_{t-1} + k_tᵀ v_t."""
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    BH, S, d = r.shape
+    s = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(S):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("bi,bij->bj", r[:, t], s + u[:, :, None] * kv))
+        s = s * w[:, t, :, None] + kv
+    return torch.stack(outs, dim=1)
+
+
+#: ((B, H, S, d), largest decay logit, what it exercises): the shapes at
+#: which the WKV kernel is held against :func:`naive_wkv6` on the card.
+WKV_EDGE_CASES = (
+    ((8, 64, 512, 64), 0.0, "the served rwkv6-7b prefill's shape"),
+    ((3, 4, 1, 64), 0.0, "S = 1"),
+    ((2, 4, 100, 64), 0.0, "S not a multiple of the 16-step staging run"),
+    ((2, 4, 64, 32), 0.0, "d = 32, the smoke config's head size"),
+    ((1, 3, 77, 64), 0.0, "B = 1"),
+    ((2, 4, 256, 64), 3.0, "logits up to 3, decays as decode's unclamped step sees them"),
+)
+
+
+def wkv6_inputs(randn, B, H, S, d, logit_max=0.0):
+    """WKV inputs as ``rwkv_time_mix`` hands them to the kernel: r, k, v, w
+    (B, H, S, d) head views of (B, S, H·d) projections, and u (H, d).  Drawn
+    as ``repro``'s kernel tests draw them: r/k/v ~ N(0, 0.5^2), u ~
+    N(0, 0.3^2), w = exp(-exp(logit)) with the logit uniform in [-6,
+    ``logit_max``].  ``randn(shape)`` gives float32 N(0, 1) tensors (from a
+    seeded generator on the device the inputs should lie on); the uniform
+    draws are the normal CDF of such draws."""
+    def heads(t):
+        return t.view(B, S, H, d).transpose(1, 2)
+
+    r, k, v = (heads(0.5 * randn((B, S, H * d))) for _ in range(3))
+    logit = -6.0 + (logit_max + 6.0) * torch.special.ndtr(randn((B, S, H * d)))
+    return r, k, v, heads(torch.exp(-torch.exp(logit))), 0.3 * randn((H, d))
+
+
 # ---------------------------------------------------------------------------
 # Quantized wire (the counterparts of repro.kernels.ref's)
 # ---------------------------------------------------------------------------

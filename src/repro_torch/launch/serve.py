@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
         --smoke --batch 8 --prompt-len 16 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b   # on the card
 
 The lockstep path of ``repro.launch.serve``: random weights from seed 0,
 a random prompt fed one token per decode step, then ``--gen`` tokens

@@ -3,8 +3,8 @@
 A model is ``n_periods`` repetitions of ``cfg.pattern``.  As in ``repro``,
 period parameters (and decode states) are stacked along a leading axis; the
 scan over periods becomes a Python loop over views ``leaf[i]`` of the
-stacked tensors, which copies nothing.  The attention and Mamba mixers
-and the dense MLP are ported (not MoE, not RWKV).
+stacked tensors, which copies nothing.  The attention, Mamba and RWKV-6
+mixers, the dense MLP and the RWKV channel mix are ported (not MoE).
 """
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ from .attention import attention_decode, attention_forward, init_attention, init
 from .config import AttentionConfig, LayerSpec, ModelConfig
 from .mlp import init_mlp, mlp
 from .norms import init_rmsnorm, rmsnorm
+from .rwkv import (init_rwkv_channel_mix, init_rwkv_state, init_rwkv_time_mix,
+                   rwkv_channel_mix, rwkv_channel_mix_decode, rwkv_time_mix,
+                   rwkv_time_mix_decode)
 from .ssm import init_mamba, init_mamba_state, mamba_decode, mamba_forward
 
 
@@ -29,9 +32,10 @@ def _attn_cfg(cfg: ModelConfig, spec: LayerSpec) -> AttentionConfig:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind not in ("attn", "mamba") or spec.mlp not in ("mlp", "none"):
+    if spec.kind not in ("attn", "mamba", "rwkv") \
+            or spec.mlp not in ("mlp", "rwkv_cm", "none"):
         raise NotImplementedError(f"layer {spec} is not ported yet "
-                                  "(only attn / mamba + dense mlp)")
+                                  "(only attn / mamba / rwkv + dense mlp / rwkv_cm)")
 
 
 def tree_index(tree, i: int):
@@ -55,12 +59,17 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device="cuda", lead: tupl
     p = {"norm1": init_rmsnorm(d, dtype, zc, device, lead)}
     if spec.kind == "attn":
         p["attn"] = init_attention(gen, d, cfg.attn, dtype, device, lead)
-    else:
+    elif spec.kind == "mamba":
         p["mamba"] = init_mamba(gen, d, cfg.mamba, dtype, device, lead)
+    else:
+        p["rwkv_tm"] = init_rwkv_time_mix(gen, d, cfg.rwkv, dtype, device, lead)
     if spec.mlp != "none":
         p["norm2"] = init_rmsnorm(d, dtype, zc, device, lead)
+    if spec.mlp == "mlp":
         gated = cfg.act in ("silu", "gelu_tanh", "gelu")
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated, dtype, device, lead)
+    elif spec.mlp == "rwkv_cm":
+        p["rwkv_cm"] = init_rwkv_channel_mix(gen, d, cfg.d_ff, dtype, device, lead)
     if cfg.post_norms:
         p["norm1_post"] = init_rmsnorm(d, dtype, zc, device, lead)
         if spec.mlp != "none":
@@ -88,14 +97,20 @@ def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
     h = rmsnorm(params["norm1"], x, eps, zc)
     if spec.kind == "attn":
         h = attention_forward(params["attn"], h, positions, _attn_cfg(cfg, spec))
-    else:
+    elif spec.kind == "mamba":
         h = mamba_forward(params["mamba"], h, cfg.mamba)
+    else:
+        h = rwkv_time_mix(params["rwkv_tm"], h, cfg.rwkv)
     if cfg.post_norms:
         h = rmsnorm(params["norm1_post"], h, eps, zc)
     x = x + h.to(x.dtype)
     if spec.mlp == "none":
         return x
-    h = mlp(params["mlp"], rmsnorm(params["norm2"], x, eps, zc), act=cfg.act)
+    h = rmsnorm(params["norm2"], x, eps, zc)
+    if spec.mlp == "mlp":
+        h = mlp(params["mlp"], h, act=cfg.act)
+    else:
+        h = rwkv_channel_mix(params["rwkv_cm"], h)
     if cfg.post_norms:
         h = rmsnorm(params["norm2_post"], h, eps, zc)
     return x + h.to(x.dtype)
@@ -130,24 +145,31 @@ def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool):
 
 
 def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec):
-    """x: (B, D) one position.  Returns (x, state); the KV cache or Mamba
-    state in ``state`` is updated in place."""
+    """x: (B, D) one position.  Returns (x, state); the KV cache, Mamba or
+    RWKV states in ``state`` are updated in place."""
     eps, zc = cfg.norm_eps, cfg.zero_centered_norm
     h = rmsnorm(params["norm1"], x, eps, zc)
     if spec.kind == "attn":
         h, state_m = attention_decode(params["attn"], h, position, state["mixer"],
                                       _attn_cfg(cfg, spec))
-    else:
+    elif spec.kind == "mamba":
         h, state_m = mamba_decode(params["mamba"], h, cfg.mamba, state["mixer"])
+    else:
+        h, state_m = rwkv_time_mix_decode(params["rwkv_tm"], h, cfg.rwkv, state["mixer"])
     if cfg.post_norms:
         h = rmsnorm(params["norm1_post"], h, eps, zc)
     x = x + h.to(x.dtype)
+    new_state = {"mixer": state_m}
     if spec.mlp != "none":
-        h = mlp(params["mlp"], rmsnorm(params["norm2"], x, eps, zc), act=cfg.act)
+        h = rmsnorm(params["norm2"], x, eps, zc)
+        if spec.mlp == "mlp":
+            h = mlp(params["mlp"], h, act=cfg.act)
+        else:
+            h, new_state["cm"] = rwkv_channel_mix_decode(params["rwkv_cm"], h, state["cm"])
         if cfg.post_norms:
             h = rmsnorm(params["norm2_post"], h, eps, zc)
         x = x + h.to(x.dtype)
-    return x, {"mixer": state_m}
+    return x, new_state
 
 
 def decode_period(params, x, position, states, cfg: ModelConfig):
@@ -177,6 +199,12 @@ def init_layer_state(batch: int, max_len: int, cfg: ModelConfig, spec: LayerSpec
     _check_spec(spec)
     if spec.kind == "mamba":
         return {"mixer": init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype, device, lead)}
+    if spec.kind == "rwkv":
+        full = init_rwkv_state(batch, cfg.d_model, cfg.rwkv, dtype, device, lead)
+        st = {"mixer": full["tm"]}
+        if spec.mlp == "rwkv_cm":
+            st["cm"] = full["cm"]
+        return st
     # Sliding-window layers only need `window` cache slots.
     a = _attn_cfg(cfg, spec)
     eff_len = max_len if a.window is None else min(max_len, a.window)

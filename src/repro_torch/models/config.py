@@ -1,12 +1,13 @@
-"""Model configuration schema (the attn / Mamba + dense-MLP subset of ``repro``'s).
+"""Model configuration schema (the attn / Mamba / RWKV subset of ``repro``'s).
 
-``LayerSpec``, ``ModelConfig``, ``AttentionConfig`` and ``MambaConfig``
-carry the same field names and defaults as ``repro.models``.  Left out: the
-fields of families this port does not have yet (MoE, RWKV, MLA,
+``LayerSpec``, ``ModelConfig``, ``AttentionConfig``, ``MambaConfig`` and
+``RWKVConfig`` carry the same field names and defaults as ``repro.models``.
+Left out: the fields of families this port does not have yet (MoE, MLA,
 multi-codebook heads, frontend prefixes, MTP), which
 ``repro_torch.configs.get_config`` refuses, and
 ``AttentionConfig.q_chunk``/``kv_chunk``, the block sizes of ``repro``'s
-XLA attention (the port's flash kernel tiles by its own).
+XLA attention (the port's flash kernel tiles by its own), and
+``RWKVConfig.ffn_mult``, which nothing reads (configs set ``d_ff``).
 """
 
 from __future__ import annotations
@@ -47,11 +48,25 @@ class MambaConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 widths (``repro.models.rwkv.RWKVConfig``).
+
+    ``chunk`` is ``repro``'s WKV chunk; the port's kernel runs the
+    recurrence step by step, but both packages accept only
+    ``S % min(chunk, S) == 0``."""
+
+    head_dim: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+    chunk: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One layer inside the repeating block pattern.
 
-    kind:   'attn' | 'mamba' (the mixers ported so far)
-    mlp:    'mlp' (dense, uses cfg.act/d_ff) | 'none'
+    kind:   'attn' | 'mamba' | 'rwkv' (the mixers ported so far)
+    mlp:    'mlp' (dense, uses cfg.act/d_ff) | 'rwkv_cm' | 'none'
     window: sliding-window override for this layer (None = cfg default).
     """
 
@@ -70,6 +85,7 @@ class ModelConfig:
     d_ff: int
     attn: AttentionConfig | None = None
     mamba: MambaConfig | None = None
+    rwkv: RWKVConfig | None = None
     pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
     act: str = "silu"                # dense MLP activation ('gelu_tanh' => GeGLU)
     norm_eps: float = 1e-6
@@ -112,8 +128,15 @@ class ModelConfig:
             dtr = self.mamba.get_dt_rank(d)
             n += d * 2 * di + self.mamba.d_conv * di
             n += di * (dtr + 2 * self.mamba.d_state) + dtr * di + di * d
+        elif spec.kind == "rwkv":
+            # repro's formula, which leaves out mix_base, w0, u and ln_x
+            n += 4 * d * d + d * d  # r,k,v,g,out
+            n += d * self.rwkv.decay_lora + self.rwkv.decay_lora * d
+            n += 5 * d * self.rwkv.mix_lora * 2
         if spec.mlp == "mlp":
             n += 3 * d * self.d_ff
+        elif spec.mlp == "rwkv_cm":
+            n += d * self.d_ff + self.d_ff * d + d * d
         return n + 2 * d  # norms
 
     def param_count(self) -> int:

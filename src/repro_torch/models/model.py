@@ -124,7 +124,7 @@ def decode_step(params, token, position, states, cfg: ModelConfig):
     """One decode step.
 
     token: (B,) int; position: Python int (lockstep) or (B,) int32 tensor.
-    Returns (logits (B, V) float32, states); the caches and Mamba
+    Returns (logits (B, V) float32, states); the caches, Mamba and RWKV
     states are updated in place.
     """
     x = embed_tokens(params, token, cfg)

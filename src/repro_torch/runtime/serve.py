@@ -42,7 +42,9 @@ def prepare_serve_states(cfg: ModelConfig, plan: MeshPlan, batch_global: int,
     stacked on a leading n_periods axis: an attention slot holds ``{"k",
     "v"}`` (n_periods, B, cache_len, Hkv, D), a Mamba slot ``{"conv"}``
     (n_periods, B, d_conv - 1, d_inner) and ``{"ssm"}`` (n_periods, B,
-    d_inner, d_state) float32."""
+    d_inner, d_state) float32, an RWKV slot ``{"shift"}`` (n_periods, B, 1,
+    D) and ``{"wkv"}`` (n_periods, B, H, head_dim, head_dim) float32, and
+    beside it ``"cm": {"shift"}`` (n_periods, B, 1, D) for the channel mix."""
     if plan.stage != 1:
         raise NotImplementedError("pipelined decode is not ported yet")
     return init_period_states(batch_global, cache_len, cfg, cfg.cdtype, device)
@@ -52,8 +54,8 @@ def build_serve_step(cfg: ModelConfig, *, batch_global: int,
                      cache_len: int) -> ServeStep:
     """``step_fn(params, token (B,), position, states) -> (logits (B, V),
     states)``; ``position`` is a Python int shared by the batch (lockstep).
-    Runs where ``params`` and ``states`` live; the caches and Mamba states
-    in ``states`` are updated in place."""
+    Runs where ``params`` and ``states`` live; the caches, Mamba and RWKV
+    states in ``states`` are updated in place."""
     spec = ServeSpec(cfg=cfg, plan=SINGLE, cache_len=cache_len,
                      batch_global=batch_global)
 

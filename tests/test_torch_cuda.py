@@ -405,3 +405,87 @@ def test_jamba_smoke_serve_card_matches_cpu(dev):
     assert after_prefill == want
     want.update(flash_decode=steps, fused_swiglu=8 * (steps + 1))
     assert after_all == want
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV and the rwkv6-7b slice
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(rng, B, H, S, d, logit_max, dev):
+    return ref.wkv6_inputs(lambda s: _rand(rng, s, dev, scale=1.0), B, H, S, d, logit_max)
+
+
+@pytest.mark.parametrize("case", ref.WKV_EDGE_CASES,
+                         ids=[what for _, _, what in ref.WKV_EDGE_CASES])
+def test_rwkv6_wkv_kernel_matches_plain(dev, case):
+    """5e-5 abs + rel (chip_smoke.py's TOL_WKV, 13x the largest error read
+    on an H100; tests/test_kernels.py's 3e-4 for the Pallas kernel is 80x
+    it); head views of (B, S, H*d) projections, as the model hands them
+    over."""
+    shape, logit_max, _ = case
+    inp = _wkv_inputs(np.random.default_rng(12), *shape, logit_max, dev)
+    before = ops.LAUNCHES["rwkv6_wkv"]
+    out = ops.rwkv6_wkv_op(*inp)
+    assert ops.LAUNCHES["rwkv6_wkv"] == before + 1
+    want = ops.plain_rwkv6_wkv(*inp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=5e-5, rtol=5e-5)
+
+
+def test_rwkv6_wkv_contiguous_inputs_and_refusals(dev):
+    """Contiguous (B, H, S, d) inputs give what their head views give; the
+    kernel refuses a head size it is not built for and a gradient."""
+    r, k, v, w, u = _wkv_inputs(np.random.default_rng(13), 2, 4, 70, 64, 0.0, dev)
+    got = ops.rwkv6_wkv_op(*(t.contiguous() for t in (r, k, v, w)), u)
+    torch.testing.assert_close(got, ops.rwkv6_wkv_op(r, k, v, w, u), atol=0, rtol=0)
+    odd = _wkv_inputs(np.random.default_rng(14), 1, 2, 8, 48, 0.0, dev)
+    with pytest.raises(ValueError, match="head size 48"):
+        ops.rwkv6_wkv_op(*odd)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.rwkv6_wkv_op(r.detach().requires_grad_(True), k, v, w, u)
+
+
+def test_rwkv_smoke_serve_card_matches_cpu_in_place(dev):
+    """The smoke rwkv6-7b (2 layers, head_dim 32) on the card against the CPU:
+    prefill logits and 8 decode steps, 8e-5 abs (fp32 sums in other orders;
+    under 15x the largest difference an H100 showed, on logits of order 3);
+    the decode states that prepare_serve_states made, "mixer" and "cm", are
+    written in place on both; the prefill launches the WKV once per layer
+    and decoding launches no kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.runtime.serve import (build_prefill_step, build_serve_step,
+                                           prepare_serve_states)
+
+    cfg = get_smoke_config("rwkv6-7b")
+    B, S, steps = 2, 32, 8
+    params = init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(0, cfg.vocab_size, (B, S)))
+    out = {}
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        ops.reset_launches()
+        pre = build_prefill_step(cfg, batch_global=B, seq_len=S).step_fn(
+            p, {"tokens": tokens.to(device)})
+        after_prefill = dict(ops.LAUNCHES)
+        ss = build_serve_step(cfg, batch_global=B, cache_len=steps)
+        st = prepare_serve_states(cfg, ss.spec.plan, B, steps, device)
+        dec = [ss.step_fn(p, tokens[:, t].to(device), t, st)[0].cpu() for t in range(steps)]
+        out[str(device)] = (pre.cpu(), dec, tree_map(lambda t: t.cpu(), st), after_prefill,
+                            dict(ops.LAUNCHES))
+    pre_cpu, dec_cpu, st_cpu, _, _ = out["cpu"]
+    pre_card, dec_card, st_card, after_prefill, after_all = out[str(dev)]
+    torch.testing.assert_close(pre_card, pre_cpu, atol=8e-5, rtol=0)
+    for a, b in zip(dec_card, dec_cpu):
+        torch.testing.assert_close(a, b, atol=8e-5, rtol=0)
+    (slot,) = st_card
+    assert sorted(slot) == ["cm", "mixer"]
+    for name, leaf in [("tm shift", slot["mixer"]["shift"]), ("wkv", slot["mixer"]["wkv"]),
+                       ("cm shift", slot["cm"]["shift"])]:
+        assert bool(leaf.abs().sum() > 0), f"{name} state never written"
+    for a, b in zip(tree_leaves(st_card), tree_leaves(st_cpu)):
+        torch.testing.assert_close(a, b, atol=8e-5, rtol=0)
+    want = {name: 0 for name in ops.LAUNCHES}
+    want.update(rwkv6_wkv=cfg.n_layers)
+    assert after_prefill == want and after_all == want

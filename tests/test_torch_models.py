@@ -71,7 +71,7 @@ def test_config_matches_repro(arch_fn):
 
 def test_unported_arch_is_refused():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("rwkv6-7b")
+        get_config("gemma-2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
