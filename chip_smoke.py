@@ -20,6 +20,10 @@ vocab 65536):
    at the shapes the serving path gives it and at GQA / window / softcap / ragged /
    bf16 edge cases, and times kernel, plain version and (where one PyTorch
    call computes the same function) that library call with CUDA events;
+   SwiGLU at decode, the training micro-batch (T = 512) and the prefill,
+   beside the cuBLAS route (three fp32 products and the activation) and its
+   3xTF32 / byte bound, two runs bitwise equal, both sides of the T = 16
+   path switch, unaligned widths, and one-sign sums over F = 24576;
 3b. holds the training slice's kernels against their plain versions:
    quantize / dequantize (int8 and fp8) bitwise at the boundary shape and
    at the largest gradient leaf, ``roundtrip_ef`` bitwise at a bucket's
@@ -31,7 +35,7 @@ vocab 65536):
    ragged d and S, S = 1, B = 1), timed beside its bound;
 3d. holds the serving kernels against their plain versions at Jamba's
    shapes (flash attention and decode at head_dim 128, GQA 8; SwiGLU at
-   8192 x 24576), timed;
+   8192 x 24576, T = 8 and 2048, beside the cuBLAS route), timed;
 3e. holds the RWKV-6 WKV kernel against its plain version at the rwkv6-7b
    prefill's shape (8, 64, 512, 64), on head views as the model hands them
    over, and at the shared edge cases (S = 1, S off the staging run, d =
@@ -99,9 +103,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data sheet at 700 W: HBM bandwidth and fp32 rate outside the
-# tensor cores (the kernels are SIMT fp32 FMA).
+# tensor cores (the SIMT fp32 FMA kernels), and the dense TF32 tensor-core
+# rate (fused_swiglu's products, taken as 3xTF32: three TF32 passes).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # exponentials per second on the special-function units (132 SMs x 16 per
 # clock at the 1.98 GHz boost clock): the scan's operation bound
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
@@ -167,11 +173,15 @@ TOL_RWKV_LAYER_DECODE = 9e-5
 TOL_RWKV_DECODE = 5e-2
 
 
-def bound(nbytes: float, flops: float, exps: float = 0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, exps: float = 0,
+          tf32x3: float = 0) -> tuple[float, str]:
     """Least time in ms for the work, and which of bytes/operations sets it:
-    ``flops`` fp32 operations and ``exps`` exponentials on the SFU."""
+    ``flops`` fp32 operations, ``exps`` exponentials on the SFU and
+    ``tf32x3`` flops of fp32 matrix products on the tensor cores, three
+    TF32 passes each."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(flops / PEAK_FP32_FLOPS, exps / PEAK_SFU_PER_S) * 1e3
+    t_ops = max(flops / PEAK_FP32_FLOPS, exps / PEAK_SFU_PER_S,
+                3 * tf32x3 / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -305,7 +315,35 @@ def phase_flash(torch, ops, F, dev) -> dict:
             "shape": f"q/k/v ({B},{S},{H},{D}) causal fp32"}
 
 
-def phase_swiglu(torch, ops, dev) -> dict:
+def cublas_swiglu(F, x, wg, wu, wd):
+    """SwiGLU as a PyTorch user writes it: three fp32 cuBLAS products (TF32
+    off) and the activation.  No one PyTorch call computes the fused MLP, so
+    this route is ``fused_swiglu``'s library yardstick; written out here so
+    that a change to the plain version cannot move it."""
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def time_swiglu(torch, ops, F, x, w, what: str) -> dict:
+    """``fused_swiglu`` at x (silu, fp32) against its plain version, then
+    timed beside the plain version, the cuBLAS route and its bound: the
+    products as 3xTF32 on the tensor cores, or the weights and x, out read
+    or written once."""
+    T, D = x.shape
+    Fd = w[0].shape[1]
+    err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
+    check(err, TOL_FP32, f"fused_swiglu {what} T={T} D={D} F={Fd}")
+    ms = time_ms([lambda: ops.fused_swiglu_op(x, *w)], torch)
+    plain_ms = time_ms([lambda: ops.plain_fused_swiglu(x, *w)], torch)
+    lib_ms = time_ms([lambda: cublas_swiglu(F, x, *w)], torch)
+    bms, by = bound(4 * (3 * D * Fd + 2 * T * D), 0, tf32x3=6 * T * D * Fd)
+    print(f"  fused_swiglu {what} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"cuBLAS route {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms,
+            "shape": f"x ({T},{D}) wg/wu ({D},{Fd}) wd ({Fd},{D}) fp32"}
+
+
+def phase_swiglu(torch, ops, F, dev) -> dict:
     D, Fd = 3072, 8192
     g = torch.Generator(device=dev).manual_seed(13)
 
@@ -313,35 +351,52 @@ def phase_swiglu(torch, ops, dev) -> dict:
         return torch.randn(shape, generator=g, device=dev).mul_(scale).to(dtype)
 
     w = (rnd(D, Fd, scale=D ** -0.5), rnd(D, Fd, scale=D ** -0.5), rnd(Fd, D, scale=Fd ** -0.5))
-    res = {}
-    for T in (8, 4096):
+    # decode, a training micro-batch (2 x 256), the prefill (8 x 512)
+    res = {T: time_swiglu(torch, ops, F, rnd(T, D), w, "phi3") for T in (8, 512, 4096)}
+    for T in (8, 512):                     # no atomics: the same bits twice
         x = rnd(T, D)
-        err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
-        check(err, TOL_FP32, f"fused_swiglu T={T} D={D} F={Fd}")
-        ms = time_ms([lambda: ops.fused_swiglu_op(x, *w)], torch)
-        plain_ms = time_ms([lambda: ops.plain_fused_swiglu(x, *w)], torch)
-        nbytes = 4 * (3 * D * Fd + 2 * T * D)
-        bms, by = bound(nbytes, 6 * T * D * Fd)
-        res[T] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                  "bound_by": by, "library_ms": None,
-                  "shape": f"x ({T},{D}) wg/wu ({D},{Fd}) wd ({Fd},{D}) fp32"}
-        print(f"  fused_swiglu T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+        same = bitwise_equal(torch, ops.fused_swiglu_op(x, *w), ops.fused_swiglu_op(x, *w))
+        print(f"  fused_swiglu T={T}: two runs bitwise {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"fused_swiglu T={T}: not deterministic")
 
-    for (T, d, f, act, dt) in [(5, 96, 200, "silu", torch.float32),
+    # both sides of the skinny / tensor-core switch at phi3's width; D and F
+    # off the 16-byte chunks (staged element by element); the decode down
+    # product split over F; gelu_tanh; bf16 on both paths
+    for (T, d, f, act, dt) in [(16, D, Fd, "silu", torch.float32),
+                               (17, D, Fd, "silu", torch.float32),
+                               (5, 96, 200, "silu", torch.float32),
+                               (7, 130, 250, "gelu_tanh", torch.float32),
+                               (33, 100, 202, "silu", torch.float32),
+                               (3, 130, 1000, "gelu_tanh", torch.float32),
                                (300, 256, 512, "gelu_tanh", torch.float32),
-                               (64, 128, 256, "silu", torch.bfloat16)]:
+                               (64, 128, 256, "silu", torch.bfloat16),
+                               (9, 136, 1024, "silu", torch.bfloat16)]:
         x = rnd(T, d, dtype=dt)
-        ww = (rnd(d, f, scale=d ** -0.5, dtype=dt), rnd(d, f, scale=d ** -0.5, dtype=dt),
-              rnd(f, d, scale=f ** -0.5, dtype=dt))
+        ww = w if d == D else (rnd(d, f, scale=d ** -0.5, dtype=dt),
+                               rnd(d, f, scale=d ** -0.5, dtype=dt),
+                               rnd(f, d, scale=f ** -0.5, dtype=dt))
         e = max_err(ops.fused_swiglu_op(x, *ww, act), ops.plain_fused_swiglu(x, *ww, act))
         check(e, TOL_FP32 if dt == torch.float32 else TOL_BF16["swiglu"],
               f"fused_swiglu edge T={T} D={d} F={f} {act} {dt}")
+
+    # sums of one sign over F = 24576 (Jamba's d_ff), on both paths: a sum
+    # that the tensor core truncates would drift past the tolerance
+    d, f = 1024, 24576
+    ww = (rnd(d, f).abs_().mul_(d ** -0.5), rnd(d, f).abs_().mul_(d ** -0.5),
+          rnd(f, d).abs_().mul_(f ** -0.5))
+    for T in (8, 512):
+        x = rnd(T, d).abs_()
+        ref = ops.plain_fused_swiglu(x, *ww)
+        e = max_err(ops.fused_swiglu_op(x, *ww), ref) / float(ref.abs().max())
+        check(e, TOL_FP32, f"fused_swiglu one-sign T={T} D={d} F={f}, relative to max |plain|")
+    del ww
 
     entry = {"name": "fused_swiglu", "route": "cuda",
              "source": "src/repro_torch/csrc/fused_swiglu.cu",
              "replaces": "src/repro/kernels/fused_swiglu.py:19", **res[8]}
     entry["prefill"] = res[4096]
+    entry["train"] = res[512]
     return entry
 
 
@@ -687,22 +742,11 @@ def phase_jamba_kernels(torch, ops, F, dev, entries: dict) -> None:
 
     Dm, Fd = 8192, 24576
     w = (rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Fd, Dm, scale=Fd ** -0.5))
-    res = {}
-    for T in (8, 2048):
-        x = rnd(T, Dm, scale=1.0)
-        err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
-        check(err, TOL_FP32, f"fused_swiglu Jamba T={T} D={Dm} F={Fd}")
-        ms = time_ms([lambda: ops.fused_swiglu_op(x, *w)], torch)
-        plain_ms = time_ms([lambda: ops.plain_fused_swiglu(x, *w)], torch)
-        bms, by = bound(4 * (3 * Dm * Fd + 2 * T * Dm), 6 * T * Dm * Fd)
-        res["decode" if T == 8 else "prefill"] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None,
-            "shape": f"x ({T},{Dm}) wg/wu ({Dm},{Fd}) wd ({Fd},{Dm}) fp32"}
-        print(f"  fused_swiglu Jamba T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
-    entries["fused_swiglu"]["jamba"] = res
-    del w, x
+    entries["fused_swiglu"]["jamba"] = {
+        "decode" if T == 8 else "prefill": time_swiglu(torch, ops, F, rnd(T, Dm, scale=1.0), w,
+                                                       "Jamba")
+        for T in (8, 2048)}
+    del w
     torch.cuda.empty_cache()
 
 
@@ -1088,7 +1132,7 @@ def profile_train_step(torch, ts, params, opt_state, batch):
     # the port's own kernels, by the CUDA function names in csrc/
     ours = {"flash_attention_kernel": "flash_attention", "row_dot_kernel": "flash_attention_bwd",
             "dkdv_kernel": "flash_attention_bwd", "dq_kernel": "flash_attention_bwd",
-            "gemm_kernel": "fused_swiglu", "skinny_kernel": "fused_swiglu",
+            "wgmma_gemm_kernel": "fused_swiglu", "skinny_kernel": "fused_swiglu",
             "swiglu_bwd_": "swiglu_bwd", "dequantize_": "dequantize_tiles",
             "quantize_": "quantize_tiles"}
     by_kernel: dict = {}
@@ -1468,7 +1512,7 @@ def main() -> int:
 
     print("phase 3: kernels against their plain versions")
     entries = [phase_decode(torch, ops, F, dev), phase_flash(torch, ops, F, dev),
-               phase_swiglu(torch, ops, dev)]
+               phase_swiglu(torch, ops, F, dev)]
     print("phase 3b: training kernels against their plain versions")
     entries += [*phase_quant(torch, dev), phase_flash_bwd(torch, ops, F, dev),
                 phase_swiglu_bwd(torch, ops, dev)]

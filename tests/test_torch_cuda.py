@@ -8,7 +8,9 @@ machine with a card:
 
 Tolerances: fp32 1e-4 abs+rel.  Kernel and plain version sum over head_dim,
 keys and d_model/d_ff in different orders on the card (the plain version
-through full-fp32 cuBLAS products, TF32 off), so they agree to fp32
+through full-fp32 cuBLAS products, TF32 off; SwiGLU at T > 16 through
+3xTF32 tensor-core products, fp32-accurate as
+``tests/test_torch_swiglu_split.py`` shows), so they agree to fp32
 rounding of those sums, not bitwise.  bf16 outputs are rounded to bf16
 (relative step 2^-8): 2e-2 for attention, 3e-2 for SwiGLU, as in
 ``tests/test_kernels.py``.
@@ -105,6 +107,14 @@ SWIGLU_CASES = [
     (5, 96, 200, "silu", torch.float32),          # ragged everything
     (300, 256, 512, "gelu_tanh", torch.float32),  # large-T tiles, ragged T
     (64, 128, 256, "silu", torch.bfloat16),
+    (16, 3072, 8192, "silu", torch.float32),      # the two sides of the T = 16
+    (17, 3072, 8192, "silu", torch.float32),      # path switch
+    (512, 3072, 8192, "silu", torch.float32),     # the training micro-batch
+    (8, 8192, 24576, "silu", torch.float32),      # Jamba decode, 2.4 GB of weights
+    (7, 130, 250, "gelu_tanh", torch.float32),    # rows off 16 bytes, decode path
+    (33, 100, 202, "silu", torch.float32),        # rows off 16 bytes, tensor cores
+    (3, 130, 1000, "gelu_tanh", torch.float32),   # decode, rows off 16 bytes, F split in 3
+    (9, 136, 1024, "silu", torch.bfloat16),       # decode bf16, F split in 4
 ]
 
 
@@ -122,6 +132,35 @@ def test_swiglu_kernel_matches_plain(dev, case):
     tol = _tol(dtype, bf16=3e-2)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
+
+@pytest.mark.parametrize("T", [8, 512])
+def test_swiglu_kernel_long_k_one_sign(dev, T):
+    """x >= 0 and every weight > 0: the down product sums 24576 terms of one
+    sign, where a sum that the tensor core truncates would drift.  Compared
+    relative to max |plain|, on the decode path (T = 8) and the tensor-core
+    path (T = 512)."""
+    D, F = 1024, 24576
+    rng = np.random.default_rng(18)
+    x = _rand(rng, (T, D), dev, scale=1.0).abs()
+    wg, wu = (_rand(rng, (D, F), dev, scale=D ** -0.5).abs() for _ in range(2))
+    wd = _rand(rng, (F, D), dev, scale=F ** -0.5).abs()
+    out = ops.fused_swiglu_op(x, wg, wu, wd)
+    ref = ops.plain_fused_swiglu(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= _tol(torch.float32) * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("T", [8, 512])
+def test_swiglu_kernel_deterministic(dev, T):
+    """No atomics: two runs on the same inputs give the same bits, on the
+    decode path (its down product split over F across a cluster) and the
+    tensor-core path."""
+    D, F = 3072, 8192
+    rng = np.random.default_rng(19)
+    x = _rand(rng, (T, D), dev, scale=1.0)
+    w = [_rand(rng, s, dev, scale=s[0] ** -0.5) for s in ((D, F), (D, F), (F, D))]
+    a, b = (ops.fused_swiglu_op(x, *w) for _ in range(2))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
