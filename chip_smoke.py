@@ -20,7 +20,11 @@ vocab 65536):
    at the shapes the serving path gives it and at GQA / window / softcap / ragged /
    bf16 edge cases, and times kernel, plain version and (where one PyTorch
    call computes the same function) that library call with CUDA events;
-   SwiGLU at decode, the training micro-batch (T = 512) and the prefill,
+   flash attention at the prefill and at the training micro-batch
+   (2, 256) beside SDPA and its 3xTF32 bound, two runs bitwise equal, S =
+   1, 63 and 65, head_dim 160 (the SIMT route), and a causal row of 16384
+   keys with one-sign values; SwiGLU at decode, the training micro-batch
+   (T = 512) and the prefill,
    beside the cuBLAS route (three fp32 products and the activation) and its
    3xTF32 / byte bound, two runs bitwise equal, both sides of the T = 16
    path switch, unaligned widths, and one-sign sums over F = 24576;
@@ -82,7 +86,9 @@ vocab 65536):
    lockstep decode at batch 8, prompt 64 + gen 64 (the serve launcher's
    loop); every kernel's launch count checked; device-busy share of a
    decode step from a profiler trace;
-9. prints a ``{"kernels": [...]}`` line (all nine kernels, with their
+9. reads the flash forward's device time at the training shape beside
+   SDPA's kernels' (a profiler trace, last because tracing slows later
+   launches), prints a ``{"kernels": [...]}`` line (all nine kernels, with their
    launches on the phi3 serving, phi3 training, Jamba serving and rwkv6-7b
    serving paths) and, last, ``{"ok": true, ...}``.
 
@@ -104,7 +110,8 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data sheet at 700 W: HBM bandwidth and fp32 rate outside the
 # tensor cores (the SIMT fp32 FMA kernels), and the dense TF32 tensor-core
-# rate (fused_swiglu's products, taken as 3xTF32: three TF32 passes).
+# rate (fused_swiglu's and flash_attention's products, taken as 3xTF32:
+# three TF32 passes).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
@@ -205,6 +212,28 @@ def time_ms(fns, torch, target_s: float = 0.4) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, torch, n: int = 100) -> float:
+    """Mean device time per call of the kernels ``fn`` launches, from a
+    ``torch.profiler`` trace of ``n`` calls: the card's own time, which
+    ``time_ms`` reads only when the card, not the host's launch path, is the
+    slower of the two.  Tracing, once started, slows later launches: call
+    it after the timed phases."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("profiler trace holds no device time")
+    return us / 1e3 / n
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -275,6 +304,14 @@ def phase_decode(torch, ops, F, dev) -> dict:
             "shape": f"q ({B},{H},{D}) cache ({B},{S},{H},{D}) lens sum {total_len} fp32"}
 
 
+def flash_bound(B, S, H, Hkv, D, causal=True):
+    """``flash_attention``'s least time: q/out read and written once, k/v
+    read once, or 4·D flops a (query, valid key) pair as 3xTF32 products on
+    the tensor cores."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return bound(4 * (2 * B * S * H * D + 2 * B * S * Hkv * D), 0, tf32x3=4 * D * B * H * pairs)
+
+
 def phase_flash(torch, ops, F, dev) -> dict:
     B, S, H, D = 8, 512, 32, 96
     g = torch.Generator(device=dev).manual_seed(12)
@@ -285,13 +322,23 @@ def phase_flash(torch, ops, F, dev) -> dict:
     q, k, v = rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
     err = max_err(ops.flash_attention_op(q, k, v), ops.plain_flash_attention(q, k, v))
     check(err, TOL_FP32, f"flash_attention ({B}*{H}, {S}, {D}) causal")
+    same = bitwise_equal(torch, ops.flash_attention_op(q, k, v), ops.flash_attention_op(q, k, v))
+    print(f"  flash_attention ({B}, {S}, {H}, {D}): two runs bitwise {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("flash_attention: not deterministic")
 
+    # GQA, window, softcap, ragged S, non-causal, bf16; S = 1 and both sides
+    # of a 64-row tile; D = 160 (the SIMT route)
     for (b, s, h, hkv, d, win, cap, causal, dt) in [
             (2, 300, 32, 8, 96, None, None, True, torch.float32),
             (1, 256, 8, 1, 128, 64, None, True, torch.float32),
             (2, 130, 8, 8, 96, None, 50.0, True, torch.float32),
             (1, 100, 4, 4, 64, None, None, False, torch.float32),
-            (2, 160, 4, 2, 64, 40, 30.0, True, torch.bfloat16)]:
+            (2, 160, 4, 2, 64, 40, 30.0, True, torch.bfloat16),
+            (3, 1, 8, 2, 32, None, None, True, torch.float32),
+            (2, 63, 8, 2, 64, None, None, True, torch.float32),
+            (2, 65, 16, 4, 128, None, None, True, torch.float32),
+            (1, 200, 4, 2, 160, None, None, True, torch.float32)]:
         qq, kk, vv = rnd(b, s, h, d, dtype=dt), rnd(b, s, hkv, d, dtype=dt), rnd(b, s, hkv, d, dtype=dt)
         kw = dict(window=win, softcap=cap, causal=causal)
         e = max_err(ops.flash_attention_op(qq, kk, vv, **kw),
@@ -300,19 +347,61 @@ def phase_flash(torch, ops, F, dev) -> dict:
               f"flash_attention edge B={b} S={s} H={h} Hkv={hkv} D={d} window={win} "
               f"softcap={cap} causal={causal} {dt}")
 
+    # a causal row of 16384 keys, q/k in [0, 1) and V in [1, 1.1): one-sign
+    # sums that the tensor core, which truncates, would drift on
+    qq, kk = (torch.rand((1, 16384, n, 128), generator=g, device=dev) for n in (2, 1))
+    vv = torch.rand((1, 16384, 1, 128), generator=g, device=dev).mul_(0.1).add_(1.0)
+    e = max_err(ops.flash_attention_op(qq, kk, vv), ops.plain_flash_attention(qq, kk, vv))
+    check(e, TOL_FP32, "flash_attention long row (1, 16384, 2/1, 128), values around 1")
+    del qq, kk, vv
+
     ms = time_ms([lambda: ops.flash_attention_op(q, k, v)], torch)
     plain_ms = time_ms([lambda: ops.plain_flash_attention(q, k, v)], torch)
     lib_ms = time_ms([lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True)], torch)
-    nbytes = 4 * 4 * B * S * H * D
-    flops = 4 * D * B * H * (S * (S + 1) // 2)
-    bms, by = bound(nbytes, flops)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:27",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms,
-            "shape": f"q/k/v ({B},{S},{H},{D}) causal fp32"}
+    bms, by = flash_bound(B, S, H, H, D)
+    print(f"  flash_attention ({B}, {S}, {H}, {D}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:27",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": by, "library_ms": lib_ms,
+             "shape": f"q/k/v ({B},{S},{H},{D}) causal fp32"}
+
+    # the training step's shape (a micro-batch of 2 x 256 tokens)
+    B, S = 2, 256
+    q, k, v = rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+    err = max_err(ops.flash_attention_op(q, k, v), ops.plain_flash_attention(q, k, v))
+    check(err, TOL_FP32, f"flash_attention training shape ({B}, {S}, {H}, {D}) causal")
+    ms = time_ms([lambda: ops.flash_attention_op(q, k, v)], torch)
+    plain_ms = time_ms([lambda: ops.plain_flash_attention(q, k, v)], torch)
+    lib_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True)], torch)
+    bms, by = flash_bound(B, S, H, H, D)
+    print(f"  flash_attention ({B}, {S}, {H}, {D}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    entry["train"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": lib_ms,
+                      "shape": f"q/k/v ({B},{S},{H},{D}) causal fp32"}
+    return entry
+
+
+def phase_flash_device(torch, ops, F, dev, entry: dict) -> None:
+    """The flash forward's device time at the training shape, beside SDPA's
+    kernels', added to the entry's ``"train"``: there a call from Python can
+    spend as long on the host as the kernel takes, and the CUDA-event time
+    then reads the host.  Run last: the profiler's tracing, once started,
+    slows the launches of every later phase."""
+    B, S, H, D = 2, 256, 32, 96
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).mul_(0.5) for _ in range(3))
+    dev_ms = device_ms(lambda: ops.flash_attention_op(q, k, v), torch)
+    lib_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True), torch)
+    print(f"  flash_attention ({B}, {S}, {H}, {D}) device time: kernel {dev_ms:.4f} ms, "
+          f"SDPA {lib_dev_ms:.4f} ms")
+    entry["train"].update(device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
 
 def cublas_swiglu(F, x, wg, wu, wd):
@@ -709,8 +798,7 @@ def phase_jamba_kernels(torch, ops, F, dev, entries: dict) -> None:
     plain_ms = time_ms([lambda: ops.plain_flash_attention(q, k, v)], torch)
     lib_ms = time_ms([lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), kt, vt, is_causal=True)], torch)
-    bms, by = bound(4 * (2 * B * S * H * D + 2 * B * S * Hkv * D),
-                    4 * D * B * H * (S * (S + 1) // 2))
+    bms, by = flash_bound(B, S, H, Hkv, D)
     entries["flash_attention"]["jamba"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": lib_ms, "shape": f"q ({B},{S},{H},{D}) kv {Hkv} heads causal fp32"}
@@ -1130,7 +1218,8 @@ def profile_train_step(torch, ts, params, opt_state, batch):
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} launches  "
               f"{e.key[:90]}")
     # the port's own kernels, by the CUDA function names in csrc/
-    ours = {"flash_attention_kernel": "flash_attention", "row_dot_kernel": "flash_attention_bwd",
+    ours = {"flash_attention_wgmma_kernel": "flash_attention",
+            "flash_attention_simt_kernel": "flash_attention", "row_dot_kernel": "flash_attention_bwd",
             "dkdv_kernel": "flash_attention_bwd", "dq_kernel": "flash_attention_bwd",
             "wgmma_gemm_kernel": "fused_swiglu", "skinny_kernel": "fused_swiglu",
             "swiglu_bwd_": "swiglu_bwd", "dequantize_": "dequantize_tiles",
@@ -1536,6 +1625,8 @@ def main() -> int:
     print("phase 8a: an rwkv6-7b layer at full width, card vs CPU")
     phase_rwkv_layer(torch, dev)
     rwkv = phase_rwkv_serve(torch, ops, dev, card)
+    print("phase 9: the flash forward's device time at the training shape")
+    phase_flash_device(torch, ops, F, dev, next(e for e in entries if e["name"] == "flash_attention"))
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}

@@ -4,35 +4,90 @@
 // `flash_attention` (Pallas, TPU); in the model it stands in for
 // src/repro/models/attention.py `blocked_causal_attention`.
 //
-// Bound on the card: operations.  At the slice's prefill, (8 x 32 heads,
-// S = 512, D = 96) causal, 4 * D flops per (query, valid key) come to about
-// 13 GFLOP against 50 MB of q/k/v/o, ~250 flops per byte, well above the
-// fp32 ridge of the H100 (67 TFLOP/s over 3.35 TB/s = ~20).
+// Bound on the card: operations.  4 * D flops per (query, valid key) pair,
+// taken as three TF32 passes on the tensor cores (495 TFLOP/s dense TF32 on
+// an H100 SXM at 700 W, so 165 TFLOP/s of fp32-accurate products): at the
+// phi3 prefill (8 x 32 heads, S = 512, D = 96, causal) 0.0782 ms against
+// 0.0150 ms for its 50 MB of q/k/v/out; at Jamba's (2 x 64 heads, S =
+// 1024, D = 128, kv 8 heads) 0.2084 ms.
 //
-// Design: one block of 256 threads per (64-query tile, head, batch row).
-// The TPU kernel carries (m, l, acc) in VMEM scratch across a sequential kv
-// grid axis; GPU blocks carry nothing across the grid, so the block loops
-// over 64-key tiles itself, from the window's first key to the causal bound
-// only (fully masked tiles are never loaded).  The q tile stays in shared
-// memory; K, V and the probability tile P pass through shared memory, and
-// each thread keeps a 4 x 4 score tile and a 4 x (D/16) output tile in
-// registers (rows ty + 16 i, key columns / head_dim columns tx + 16 j), so
-// every shared-memory operand is reused 4 times per load.  The row max and
-// row sum of the online softmax reduce over the 16 lanes that share a row
-// with warp shuffles.  q/k/v are read in the model layout (B, S, H, D) by
-// strides (no transposed copy) and the ragged tail of S is masked, not
-// padded.  Plain SIMT fp32 FMAs: wgmma/TMA are later work.  For training
-// the caller passes a (B, H, S) float32 buffer and the kernel writes each
-// row's logsumexp m + log(l) of the scaled scores there, which the backward
-// (flash_attention_bwd.cu) uses to recompute the probabilities; serving
-// passes null.
+// Two routes, chosen by head_dim D (a choice by shape: a launch that fails
+// raises, nothing gives way to another route):
+//
+// D <= 128 with D % 8 == 0 (every attention model the port runs: phi3 96,
+// Jamba 128): both products on the tensor cores through wgmma, 3xTF32.
+// Each fp32 operand v splits into TF32 parts hi = tf32(v) and lo = tf32(v -
+// hi), and each product sums lo*hi + hi*lo + hi*hi in fp32 (lo*lo, ~2^-22
+// relative, is dropped); the probability tile P, computed in fp32, is split
+// like any operand.  One pass on either product misses the fp32 tolerance
+// (tests/test_torch_attention_tf32.py shows it on the CPU).  bf16 q/k/v are
+// exact in TF32 and are widened while staged, so the compute is one
+// instance per head_dim: their lo passes drop out (S in one pass, P V in
+// two: P's lo stays).
+//   * A block owns 64 query rows for each multiplying warpgroup (two at D
+//     <= 96, one at 128) of one (batch row, head), and loops over 64-key
+//     tiles from the window's first key to the causal bound only.  Blocks
+//     run heads fastest (a GQA group shares K/V in L2) and, causal, the
+//     longest query tiles first.  q/k/v are read in the model layout (B, S,
+//     H, D) by strides, the ragged tail of S is masked, not padded, and
+//     head_dim columns D..DP-1 (DP: D rounded up to 32, 64, 96 or 128) are
+//     zero in shared memory.
+//   * Warp specialized: warpgroup 0 stages, the others multiply, handing
+//     tiles over through named barriers.  The stager loads Q once (hi and lo
+//     parts in wgmma's K-major layout without swizzle), then K and V tiles
+//     through a ring of 2-4 slots (as many as fit in 227 KB beside Q), each
+//     tile's loads issued before the previous one is stored.
+//   * S = Q K^T: both operands are K-major as they lie (head_dim
+//     contiguous): wgmma m64n64k8 with A and B from shared memory.
+//   * O = P V: .tf32 wgmma takes B only K-major, and the V tile (keys x
+//     head_dim) is N-major, so the stager transposes and splits it through
+//     registers (one 16-byte store per 4 keys of a column).  P goes in as A
+//     from registers: the stager also permutes the keys within each 8-key
+//     step (slot s holds key 2s, or 2(s - 4) + 1), so that the S
+//     accumulator's registers are P's A fragments as they stand, with no
+//     shuffle and no trip through shared memory.
+//   * Long rows: the tensor core truncates its fp32 sums, so each key
+//     tile's P V is summed from zero (in column chunks that fit the
+//     registers) and added to the running output in fp32 after the online
+//     softmax's rescale (the one-sign row of 16384 keys in chip_smoke.py and
+//     tests/test_torch_cuda.py holds it).  The softmax runs in base 2 on the
+//     special-function unit.
+//   * No atomics: two runs give the same bits, and the output is the same
+//     whether or not the logsumexp is asked for.
+//
+// Other D <= 256: the SIMT kernel, one block of 256 threads per (64-query
+// tile, head, batch row); Q, K, V and P pass through shared memory, each
+// thread keeps a 4 x 4 score tile and a 4 x (D/16) output tile in registers
+// (rows ty + 16 i, columns tx + 16 j), plain fp32 FMAs.
+//
+// For training the caller passes a (B, H, S) float32 buffer and the kernel
+// writes each row's logsumexp m + log(l) of the scaled scores there, which
+// the backward (flash_attention_bwd.cu) uses to recompute the
+// probabilities; serving passes null.
+//
+// Measured (chip_smoke.py phases 3 and 3d, NVIDIA H100 80GB HBM3 at 700
+// W), against one SDPA call on the same inputs: phi3 prefill (8, 512, 32,
+// 96) 0.2426 ms (SDPA 0.4686; the SIMT kernel 0.87), 32% of the bound;
+// Jamba (2, 1024, 64/8, 128) 0.7013 ms (SDPA 0.9082; the SIMT kernel
+// 2.09), 30% of the bound; the training shape (2, 256, 32, 96) 0.0273 ms
+// of device time (SDPA's kernels 0.0475), where a call from Python spends
+// as long on the host, so its CUDA-event time reads 0.027-0.051 ms by
+// the host's speed.  ptxas: 244 registers at D = 128; 168 at launch with two
+// multiplying warpgroups (setmaxnreg: 136 staging / 184 multiplying at D =
+// 96, 120 / 192 at 32 and 64); no spills.
+//
+// What holds it back: the staging warpgroup's register path (global loads,
+// the split, the transposing stores) and each multiplying warpgroup's
+// softmax between its two products; no TMA, and at D = 128 a single
+// multiplying warpgroup (two Q tiles and a ring do not fit in 227 KB).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, kThreads = 256;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -44,14 +99,644 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 struct Strides { long long b, s, h; };
 
+// ---------------------------------------------------------------------------
+// Tensor-core route (head_dim D <= 128, D % 8 == 0): 3xTF32 wgmma.
+// ---------------------------------------------------------------------------
+
+// ---- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma (warpgroup: 4 warps, 128 threads) D (64 x N, fp32) = A (64 x 8) * B
+// (8 x N) [+ D when scale_d], TF32, both operands K-major.  ss: A and B from
+// shared memory through descriptors.  rs: A from registers, warp w of the
+// group holding rows 16w..16w+15 as mma.sync's m16n8k8 A fragment (a[0]: row
+// g, column t; a[1]: row g + 8, column t; a[2]: row g, column t + 4; a[3]:
+// row g + 8, column t + 4).  D: d[4 i + e] is row 16w + g + 8 (e / 2),
+// column 8 i + 2 t + e % 2 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64, "P V column chunks are 32 or 64 wide");
+  if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b, scale_d);
+  else wgmma_rs_n64(d, a, desc_b, scale_d);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps a register's value in place across an asynchronous wgmma that reads
+// or writes it (the compiler sees a use and a redefinition here)
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// wgmma shared-memory descriptor of a K-major operand without swizzle:
+// 8-row x 16-byte core matrices, lbo bytes apart along K and sbo bytes apart
+// along M/N
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// a warpgroup's registers per thread, lowered or raised (warp
+// specialization); the raise waits until the block's own registers allow
+// it, so the counts must fit what the block was launched with
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// a descriptor made opaque to the compiler, so that the per-step
+// descriptors derived from it are recomputed where they are used instead
+// of being hoisted out of the tile loop into registers
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// named barriers: bar_sync waits until `count` threads have arrived at
+// barrier `id` (itself included); bar_arrive arrives without waiting
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- 3xTF32 -----------------------------------------------------------------
+
+// fp32 -> TF32 as a 32-bit pattern, round to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds, in two integer operations (inf and nan
+// stay inf and nan)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// ---- staging: global -> registers -> TF32 parts in wgmma's layout ----------
+
+// Staged data: fp32, or bf16 as its 16 bits, widened exactly by a shift.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) { return __uint_as_float((uint32_t)x << 16); }
+
+// Four consecutive elements from p.  vec: one 16-byte (fp32) or 8-byte
+// (bf16) load, which needs that alignment; else element by element.
+template <typename E>
+__device__ __forceinline__ float4 load4(const E* p, bool vec) {
+  if (vec) {
+    if constexpr (sizeof(E) == 4) {
+      return *reinterpret_cast<const float4*>(p);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+    }
+  }
+  return make_float4(widen(p[0]), widen(p[1]), widen(p[2]), widen(p[3]));
+}
+
+// 2^x on the special-function unit (relative error ~2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kRows = 64;        // query rows a block
+constexpr int kKeys = 64;        // keys a tile
+
+// Rows row0..row0+63 of a (rows, D) operand (element offset `base` of row 0,
+// row stride rs; zero at rows >= row_end and columns >= D) into the hi and
+// lo TF32 parts of a 64 x DP K-major wgmma operand without swizzle: 8 x 4
+// core matrices (8 rows, 4 columns; 128 bytes), element (n, c) at word
+// ((n / 8) * (DP / 4) + c / 4) * 32 + (n % 8) * 4 + c % 4, so core matrices
+// are 128 bytes apart along the columns and 32 * DP bytes apart along the
+// rows.  A thread takes 4 columns of one row: one 16-byte store each for hi
+// and lo, 8 lanes on 8 rows of one core matrix (conflict-free), 4 lanes on
+// 64 contiguous bytes of a row in memory.  lo is null for bf16 data (exact
+// in TF32).  Q (the A operand of S = Q K^T) and K (its B operand) both lie
+// so, head_dim being their K dimension.  Loads and stores are separate
+// calls, so that a tile's loads are in flight while the previous one is
+// stored.
+template <int DP>
+struct RowUnit {   // this thread's row n and 4-column group c in pass it
+  int n, c;
+  __device__ __forceinline__ RowUnit(int it) {
+    const int lane = threadIdx.x % 32, combo = it * 4 + (threadIdx.x / 32) % 4;
+    n = (combo % 8) * 8 + lane % 8;
+    c = (combo / 8) * 4 + lane / 8;
+  }
+};
+template <int DP, typename E>
+__device__ __forceinline__ void load_rows(float4 (&x)[DP / 8], const E* src, long long rs,
+                                          int row0, int row_end, int D, bool vec) {
+#pragma unroll
+  for (int it = 0; it < DP / 8; ++it) {
+    const RowUnit<DP> u(it);
+    const int row = row0 + u.n;
+    x[it] = row < row_end && 4 * u.c < D ? load4(src + row * rs + 4 * u.c, vec)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+template <int DP>
+__device__ __forceinline__ void store_rows(const float4 (&x)[DP / 8], uint32_t* hi, uint32_t* lo) {
+#pragma unroll
+  for (int it = 0; it < DP / 8; ++it) {
+    const RowUnit<DP> u(it);
+    const int off = ((u.n / 8) * (DP / 4) + u.c) * 32 + (u.n % 8) * 4;
+    uint32_t h[4], l[4];
+    split(x[it].x, h[0], l[0]);
+    split(x[it].y, h[1], l[1]);
+    split(x[it].z, h[2], l[2]);
+    split(x[it].w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    if (lo != nullptr) *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The V tile (keys k0..k0+63, all D columns) transposed into the B operand
+// of O = P V, K-major: B (K = 64 key slots, N = DP columns of V), element
+// (n, slot) at word ((n / 8) * 16 + slot / 4) * 32 + (n % 8) * 4 + slot % 4
+// (core matrices 128 bytes apart along the slots, 2048 bytes along n).  The
+// slots are the tile's keys permuted within each 8-key step u: slot 8u + s
+// holds key 8u + 2s for s < 4 and key 8u + 2(s - 4) + 1 for s >= 4, so that
+// the S accumulator's registers are P's A fragments as they stand (see the
+// consumer).  A thread takes 4 slots of one column (4 rows of V, one element
+// each, 32 lanes on 32 consecutive columns of a row) and writes one 16-byte
+// run each for hi and lo (8 lanes on 8 n of one core matrix: conflict-free).
+template <int DP>
+struct VtUnit {    // this thread's column n and 4-slot group q in pass it
+  int n, q;
+  __device__ __forceinline__ VtUnit(int it) {
+    const int combo = it * 4 + (threadIdx.x / 32) % 4;
+    q = combo % 16;
+    n = (combo / 16) * 32 + threadIdx.x % 32;
+  }
+};
+template <int DP, typename E>
+__device__ __forceinline__ void load_vt(float (&x)[DP / 8][4], const E* src, long long rs,
+                                        int row0, int row_end, int D) {
+#pragma unroll
+  for (int it = 0; it < DP / 8; ++it) {
+    const VtUnit<DP> u(it);
+    const int row = row0 + 8 * (u.q / 2) + u.q % 2;   // slot 4 (u.q % 2) .. of step u.q / 2
+    const E* p = src + row * rs + u.n;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[it][e] = row + 2 * e < row_end && u.n < D ? widen(p[2 * e * rs]) : 0.f;
+  }
+}
+template <int DP>
+__device__ __forceinline__ void store_vt(const float (&x)[DP / 8][4], uint32_t* hi, uint32_t* lo) {
+#pragma unroll
+  for (int it = 0; it < DP / 8; ++it) {
+    const VtUnit<DP> u(it);
+    const int off = ((u.n / 8) * 16 + u.q) * 32 + (u.n % 8) * 4;
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(x[it][e], h[e], l[e]);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    if (lo != nullptr) *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Multiplying warpgroups a block: two at head_dim <= 96, each with its own
+// 64 query rows and both reading one K/V ring (while one runs its softmax
+// the tensor cores run the other's products, and each staged tile serves
+// 128 rows); one at 128, where a second Q tile leaves no room for a ring.
+template <int DP>
+constexpr int kGroups = DP <= 96 ? 2 : 1;
+
+// Shared memory: Q's hi and lo parts (64 x DP each) for each multiplying
+// warpgroup, then a ring of NS slots, each the hi and lo parts of one K tile
+// or one transposed V tile (64 x DP each), as many as fit beside Q (at most
+// 4).
+template <int DP>
+struct TcTile {
+  static constexpr int NC = kGroups<DP>;
+  static constexpr int THREADS = 128 * (1 + NC);
+  // With two multiplying warpgroups, 384 threads are launched at 168
+  // registers each (65536 / 384, rounded down to 8) and the staging
+  // warpgroup gives some up to the multiplying ones (STAGE + 2 MUL = 3 x
+  // 168); the multiplying warpgroups take P V's output columns NCH at a time,
+  // so that the running output, a batch's sums and P's 64 registers fit
+  // (chosen by ptxas -v: no spills).
+  static constexpr int LAUNCH_REGS = 168;
+  static constexpr int STAGE_REGS = DP == 96 ? 136 : 120, MUL_REGS = DP == 96 ? 184 : 192;
+  static constexpr int NCH = DP == 128 ? 64 : DP == 96 ? 32 : DP;
+  static_assert(NC == 1 || STAGE_REGS + 2 * MUL_REGS <= 3 * LAUNCH_REGS,
+                "setmaxnreg would wait forever");
+  static constexpr int PART = kRows * DP;            // words of one hi or lo part
+  static constexpr int Q_BYTES = NC * 2 * PART * 4;
+  static constexpr int SLOT_BYTES = 2 * PART * 4;
+  static constexpr int FIT = (232448 - Q_BYTES) / SLOT_BYTES;
+  static constexpr int NS = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM = Q_BYTES + NS * SLOT_BYTES;
+  static_assert(NS >= 2, "the ring needs a K and a V slot");
+};
+
+// S (64 x 64) = Q K^T from zero on one warpgroup: lo*hi + hi*lo + hi*hi
+// each 8-deep step (LO), or hi*hi alone (bf16 data, exact in TF32).  Each
+// batch runs from fence to wait inside one branch-free sequence.
+template <int DP, bool LO>
+__device__ __forceinline__ void qk_tile(float (&s)[32], const uint32_t* Qh, const uint32_t* Ql,
+                                        const uint32_t* Kh, const uint32_t* Kl) {
+  // fresh zeros (s is not live across tiles), in place before the fence
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+    fence_reg(s[i]);
+  }
+  // step u's operands start 64 u words (256 u bytes, 16 u descriptor
+  // units) into each part
+  const uint64_t dqh = opaque(wgmma_desc(Qh, 128, 32 * DP));
+  const uint64_t dql = opaque(wgmma_desc(Ql, 128, 32 * DP));
+  const uint64_t dkh = wgmma_desc(Kh, 128, 32 * DP), dkl = wgmma_desc(Kl, 128, 32 * DP);
+  wgmma_fence();
+#pragma unroll
+  for (int u = 0; u < DP / 8; ++u) {
+    if constexpr (LO) {
+      wgmma_ss_n64(s, dql + 16 * u, dkh + 16 * u, u > 0);
+      wgmma_ss_n64(s, dqh + 16 * u, dkl + 16 * u, 1);
+    }
+    wgmma_ss_n64(s, dqh + 16 * u, dkh + 16 * u, LO || u > 0);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) fence_reg(s[i]);
+}
+
+// ot (64 x N) = P V[:, n0:n0+N] from zero, P's parts in registers as the A
+// fragments of the 8 key steps, Vh/Vl at the chunk's first column: lo*hi,
+// hi*lo, hi*hi each step (LO), or without hi*lo (bf16 V, exact in TF32)
+template <int N, bool LO>
+__device__ __forceinline__ void pv_chunk(float (&ot)[N / 2], uint32_t (&ph)[8][4],
+                                         uint32_t (&pl)[8][4], const uint32_t* Vh,
+                                         const uint32_t* Vl) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    ot[i] = 0.f;
+    fence_reg(ot[i]);
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      fence_reg(ph[u][a]);
+      fence_reg(pl[u][a]);
+    }
+  const uint64_t dvh = wgmma_desc(Vh, 128, 2048), dvl = wgmma_desc(Vl, 128, 2048);
+  wgmma_fence();
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    wgmma_rs<N>(ot, pl[u], dvh + 16 * u, u > 0);
+    if constexpr (LO) wgmma_rs<N>(ot, ph[u], dvl + 16 * u, 1);
+    wgmma_rs<N>(ot, ph[u], dvh + 16 * u, 1);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  // the registers the wgmmas read and wrote stay in place until here
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) fence_reg(ot[i]);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      fence_reg(ph[u][a]);
+      fence_reg(pl[u][a]);
+    }
+}
+
+// named barriers (0 is __syncthreads): Q staged; ring slot s filled (kFull
+// + s) and free again (kEmpty + s)
+constexpr int kQFull = 1, kFull = 2, kEmpty = 6;
+
+// The staging warpgroup: Q (rows q0.. of its (b, h) slice at q, 64 rows
+// for each multiplying warpgroup) once, then K_0, V_0, K_1, V_1, ... (k and
+// v at their (b, kv head) slices) through the ring; ring item i goes to
+// slot i % NS once item i - NS is consumed.  Each tile's loads are issued
+// before the previous ring item is stored.  bf16 data (E = uint16_t) is
+// exact in TF32 and has no lo parts.
+template <int DP, typename E>
+__device__ __forceinline__ void stage(unsigned char* smem, const E* q, const E* k, const E* v,
+                                      long long qrs, long long krs, long long vrs, int q0,
+                                      int kv_lo, int nt, int S, int D, bool vec) {
+  using Tl = TcTile<DP>;
+  constexpr int NS = Tl::NS, T = Tl::THREADS;
+  constexpr bool kLo = sizeof(E) == 4;
+  auto hi = [&](int s) { return reinterpret_cast<uint32_t*>(smem + Tl::Q_BYTES + s * Tl::SLOT_BYTES); };
+  auto lo = [&](int s) { return kLo ? hi(s) + Tl::PART : nullptr; };
+  float4 xq[DP / 8], xk[DP / 8];
+  float xv[DP / 8][4];
+  load_rows<DP>(xk, k, krs, kv_lo, S, D, vec);
+#pragma unroll
+  for (int c = 0; c < Tl::NC; ++c) {
+    uint32_t* Qh = reinterpret_cast<uint32_t*>(smem) + 2 * c * Tl::PART;
+    load_rows<DP>(xq, q, qrs, q0 + c * kRows, S, D, vec);
+    store_rows<DP>(xq, Qh, kLo ? Qh + Tl::PART : nullptr);
+  }
+  fence_proxy_async();
+  bar_arrive(kQFull, T);
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = kv_lo + j * kKeys;
+    load_vt<DP>(xv, v, vrs, k0, S, D);
+    int s = (2 * j) % NS;
+    if (2 * j >= NS) bar_sync(kEmpty + s, T);
+    store_rows<DP>(xk, hi(s), lo(s));
+    fence_proxy_async();
+    bar_arrive(kFull + s, T);
+    if (j + 1 < nt) load_rows<DP>(xk, k, krs, k0 + kKeys, S, D, vec);
+    s = (2 * j + 1) % NS;
+    if (2 * j + 1 >= NS) bar_sync(kEmpty + s, T);
+    store_vt<DP>(xv, hi(s), lo(s));
+    fence_proxy_async();
+    bar_arrive(kFull + s, T);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TcTile<DP>::THREADS, 1)
+flash_attention_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                             const void* __restrict__ v, void* __restrict__ out,
+                             float* __restrict__ lse, int B, int S, int H, int Hkv, int D,
+                             Strides qs, Strides ks, Strides vs, float scale, int causal,
+                             int window, float softcap, int bf16, int vec) {
+  using Tl = TcTile<DP>;
+  constexpr int NS = Tl::NS, NC = Tl::NC, T = Tl::THREADS, BR = NC * kRows, NCH = Tl::NCH;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  auto slot_hi = [&](int s) {
+    return reinterpret_cast<uint32_t*>(tc_smem + Tl::Q_BYTES + s * Tl::SLOT_BYTES);
+  };
+  auto slot_lo = [&](int s) { return slot_hi(s) + Tl::PART; };
+  // block -> (query tile of BR rows, head, batch row), heads fastest (a GQA
+  // group's blocks run together and share K/V in L2); causal: the longest
+  // query tiles (the most key tiles) first
+  const int nqt = (S + BR - 1) / BR;
+  const int hb = blockIdx.x % (H * B), qt_rev = blockIdx.x / (H * B);
+  const int h = hb % H, b = hb / H;
+  const int q0 = (causal ? nqt - 1 - qt_rev : qt_rev) * BR;
+  const int hk = h / (H / Hkv);
+  const int kv_hi = causal ? min(S, q0 + BR) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int nt = (kv_hi - kv_lo + kKeys - 1) / kKeys;   // key tiles, >= 1
+  const bool has_lo = !bf16;   // bf16 q/k/v are exact in TF32: no lo parts
+
+  if (threadIdx.x < 128) {
+    if constexpr (NC > 1) setmaxnreg_dec<Tl::STAGE_REGS>();
+    const long long qbase = b * qs.b + h * qs.h, kbase = b * ks.b + hk * ks.h;
+    const long long vbase = b * vs.b + hk * vs.h;
+    if (bf16)
+      stage<DP, uint16_t>(tc_smem, static_cast<const uint16_t*>(q) + qbase,
+                          static_cast<const uint16_t*>(k) + kbase,
+                          static_cast<const uint16_t*>(v) + vbase, qs.s, ks.s, vs.s, q0, kv_lo,
+                          nt, S, D, vec);
+    else
+      stage<DP, float>(tc_smem, static_cast<const float*>(q) + qbase,
+                       static_cast<const float*>(k) + kbase, static_cast<const float*>(v) + vbase,
+                       qs.s, ks.s, vs.s, q0, kv_lo, nt, S, D, vec);
+    return;
+  }
+
+  // ---- multiplying warpgroup c: 64 query rows from qc, 16 a warp; this
+  // thread holds rows r0 = qc + 16 w + g and r1 = r0 + 8.  It takes part in
+  // every ring item's barriers and skips the products of the key tiles its
+  // rows see none of (past their causal bound or before their window).
+  if constexpr (NC > 1) setmaxnreg_inc<Tl::MUL_REGS>();
+  const int c = (threadIdx.x - 128) / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qc = q0 + c * kRows, r0 = qc + 16 * warp + g, r1 = r0 + 8;
+  const int my_hi = causal ? min(S, qc + kRows) : S;
+  const int my_lo = window > 0 ? max(0, qc - window + 1) : 0;
+  const uint32_t* Qh = reinterpret_cast<const uint32_t*>(tc_smem) + 2 * c * Tl::PART;
+  const uint32_t* Ql = Qh + Tl::PART;
+  float o[DP / 2];         // running output, o[4 i + e]: row r0/r1, column 8 i + 2 t + e % 2
+  float ot[NCH / 2];       // one key tile's P V (a column chunk), summed from zero
+  float sacc[32];          // S, then P: sacc[4 i + e] is key 8 i + 2 t + e % 2 of the tile
+  uint32_t ph[8][4], pl[8][4];   // P's TF32 parts as the A fragments of the 8 key steps
+  // the online softmax runs in base 2: scores times log2(e), m their row
+  // maxima, P = 2^(x - m)
+  const float scale_l2e = scale * kLog2e, softcap_l2e = softcap * kLog2e;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+  bar_sync(kQFull, T);
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = kv_lo + j * kKeys;
+    const int sk = (2 * j) % NS, sv = (2 * j + 1) % NS;
+    const bool active = k0 < my_hi && k0 + kKeys > my_lo;
+
+    // S = Q K^T (columns D..DP-1 of Q and K are zero)
+    bar_sync(kFull + sk, T);
+    if (active) {
+      if (has_lo) qk_tile<DP, true>(sacc, Qh, Ql, slot_hi(sk), slot_lo(sk));
+      else qk_tile<DP, false>(sacc, Qh, Ql, slot_hi(sk), slot_lo(sk));
+    }
+    if (2 * j + NS < 2 * nt) bar_arrive(kEmpty + sk, T);
+    if (!active) {
+      bar_sync(kFull + sv, T);
+      if (2 * j + 1 + NS < 2 * nt) bar_arrive(kEmpty + sv, T);
+      continue;
+    }
+
+    // online softmax over the tile; rows are shared by the 4 lanes of a quad
+    const bool full = k0 + kKeys - 1 < S && (!causal || k0 + kKeys - 1 <= qc) &&
+                      (window <= 0 || k0 > qc + kRows - 1 - window);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = softcap > 0.f ? softcap_l2e * tanhf(sacc[4 * i + e] * scale / softcap)
+                                : sacc[4 * i + e] * scale_l2e;
+        if (!full) {
+          const int kpos = k0 + 8 * i + 2 * t + (e & 1), qpos = e < 2 ? r0 : r1;
+          bool valid = kpos < S;
+          if (causal) valid = valid && kpos <= qpos;
+          if (window > 0) valid = valid && kpos > qpos - window;
+          x = valid ? x : kNegInf;
+        }
+        sacc[4 * i + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+    // P's A fragment of key step i: a[0] = (r0, slot t) = key 8 i + 2 t =
+    // sacc[4 i], a[1] = (r1, slot t) = sacc[4 i + 2], a[2] = (r0, slot t + 4)
+    // = key 8 i + 2 t + 1 = sacc[4 i + 1], a[3] = sacc[4 i + 3]; the V tile
+    // is staged with the same key order (store_vt)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(sacc[4 * i + e] - (e < 2 ? mn0 : mn1));
+        if (e < 2) rs0 += p;
+        else rs1 += p;
+        const int a = e == 1 ? 2 : e == 2 ? 1 : e;
+        split(p, ph[i][a], pl[i][a]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+
+    // each column chunk's P V from zero, then o = o * corr + chunk in fp32:
+    // the tensor core truncates its sums, so it never carries o
+    bar_sync(kFull + sv, T);
+#pragma unroll
+    for (int n = 0; n < DP / NCH; ++n) {
+      const uint32_t* Vh = slot_hi(sv) + n * NCH * 64;
+      const uint32_t* Vl = slot_lo(sv) + n * NCH * 64;
+      if (has_lo) pv_chunk<NCH, true>(ot, ph, pl, Vh, Vl);
+      else pv_chunk<NCH, false>(ot, ph, pl, Vh, Vl);
+#pragma unroll
+      for (int i = 0; i < NCH / 2; ++i) {
+        float& acc = o[n * NCH / 2 + i];
+        acc = acc * (i % 4 < 2 ? c0 : c1) + ot[i];
+      }
+    }
+    if (2 * j + 1 + NS < 2 * nt) bar_arrive(kEmpty + sv, T);
+  }
+
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {
+    if (r0 < S) lse[((long long)b * H + h) * S + r0] = (m0 + log2f(l0)) * kLn2;
+    if (r1 < S) lse[((long long)b * H + h) * S + r1] = (m1 + log2f(l1)) * kLn2;
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col >= D) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (r >= S) continue;
+      const float inv = half ? inv1 : inv0;
+      const float x0 = o[4 * i + 2 * half] * inv, x1 = o[4 * i + 2 * half + 1] * inv;
+      const long long idx = (((long long)b * S + r) * H + h) * D + col;
+      if (bf16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) =
+            __floats2bfloat162_rn(x0, x1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(x0, x1);
+    }
+  }
+}
+
+template <int DP>
+int launch_wgmma(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+                 int B, int S, int H, int Hkv, int D, Strides qs, Strides ks, Strides vs,
+                 float scale, int causal, int window, float softcap, cudaStream_t st) {
+  auto kernel = flash_attention_wgmma_kernel<DP>;
+  constexpr int smem = TcTile<DP>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kGroups<DP> > 1) {
+    // the warpgroups' setmaxnreg counts assume this launch count: refuse
+    // rather than launch a block that would wait forever
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return (int)err;
+    if (attr.numRegs != TcTile<DP>::LAUNCH_REGS) return (int)cudaErrorLaunchOutOfResources;
+  }
+  // 16-byte (fp32) or 8-byte (bf16) loads of 4 elements need 4-element
+  // aligned bases and strides
+  auto al = [](const void* p, const Strides& s, int bytes) {
+    return (reinterpret_cast<uintptr_t>(p) % bytes) == 0 && s.b % 4 == 0 && s.s % 4 == 0 &&
+           s.h % 4 == 0;
+  };
+  const int bytes = dtype == 1 ? 8 : 16;
+  const int vec = al(q, qs, bytes) && al(k, ks, bytes);
+  const int grid = (S + kGroups<DP> * kRows - 1) / (kGroups<DP> * kRows) * H * B;
+  kernel<<<grid, TcTile<DP>::THREADS, smem, st>>>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs,
+                                                   scale, causal, window, softcap, dtype == 1, vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// SIMT route (head_dim not a multiple of 8, or above 128): plain fp32 FMAs.
+// ---------------------------------------------------------------------------
+constexpr int BQ = 64, BK = 64, kThreads = 256;
+
 // NDK = ceil(D / 16): head_dim columns of the output tile held per thread.
 template <typename T, int NDK>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ lse, int S, int H, int Hkv, int D, Strides qs, Strides ks,
-                       Strides vs, float scale, int causal, int window,
-                       float softcap) {
+flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out,
+                            float* __restrict__ lse, int S, int H, int Hkv, int D, Strides qs,
+                            Strides ks, Strides vs, float scale, int causal, int window,
+                            float softcap) {
   extern __shared__ float smem[];
   const int DS = D + 1;                       // padded row stride: no bank conflicts
   float* Qs = smem;                           // BQ x DS
@@ -177,29 +862,29 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NDK>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+int launch_simt(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
            int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(2 * BQ * (D + 1) + BK * D + BQ * (BK + 1));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, NDK>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_simt_kernel<T, NDK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, NDK><<<grid, kThreads, smem, stream>>>(
+  flash_attention_simt_kernel<T, NDK><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
-             int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, float scale,
-             int causal, int window, float softcap, cudaStream_t st) {
-  if (D <= 64) return launch<T, 4>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
-  if (D <= 96) return launch<T, 6>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
-  if (D <= 128) return launch<T, 8>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
-  if (D <= 256) return launch<T, 16>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+int dispatch_simt(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                  int S, int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, float scale,
+                  int causal, int window, float softcap, cudaStream_t st) {
+  if (D <= 64) return launch_simt<T, 4>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 96) return launch_simt<T, 6>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 128) return launch_simt<T, 8>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
+  if (D <= 256) return launch_simt<T, 16>(q, k, v, out, lse, B, S, H, Hkv, D, qs, ks, vs, scale, causal, window, softcap, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -219,11 +904,21 @@ int flash_attention(int dtype, const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides q3{qs[0], qs[1], qs[2]}, k3{ks[0], ks[1], ks[2]}, v3{vs[0], vs[1], vs[2]};
   float* lsef = static_cast<float*>(lse);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D % 8 == 0 && D <= 128) {
+    // the tensor-core route, one instance per head_dim padded to DP
+    auto go = [&](auto launch_dp) {
+      return launch_dp(dtype, q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal,
+                       window, softcap, st);
+    };
+    if (D <= 32) return go(launch_wgmma<32>);
+    if (D <= 64) return go(launch_wgmma<64>);
+    if (D <= 96) return go(launch_wgmma<96>);
+    return go(launch_wgmma<128>);
+  }
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
-  return (int)cudaErrorInvalidValue;
+    return dispatch_simt<float>(q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
+  return dispatch_simt<__nv_bfloat16>(q, k, v, out, lsef, B, S, H, Hkv, D, q3, k3, v3, scale, causal, window, softcap, st);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -8,9 +8,10 @@ machine with a card:
 
 Tolerances: fp32 1e-4 abs+rel.  Kernel and plain version sum over head_dim,
 keys and d_model/d_ff in different orders on the card (the plain version
-through full-fp32 cuBLAS products, TF32 off; SwiGLU at T > 16 through
-3xTF32 tensor-core products, fp32-accurate as
-``tests/test_torch_swiglu_split.py`` shows), so they agree to fp32
+through full-fp32 cuBLAS products, TF32 off; SwiGLU at T > 16 and flash
+attention at head_dim <= 128 through 3xTF32 tensor-core products,
+fp32-accurate as ``tests/test_torch_swiglu_split.py`` and
+``tests/test_torch_attention_tf32.py`` show), so they agree to fp32
 rounding of those sums, not bitwise.  bf16 outputs are rounded to bf16
 (relative step 2^-8): 2e-2 for attention, 3e-2 for SwiGLU, as in
 ``tests/test_kernels.py``.
@@ -83,6 +84,13 @@ ATTN_CASES = [
     (2, 130, 2, 2, 64, None, 50.0, True, torch.float32),       # softcap, ragged
     (1, 100, 2, 2, 32, None, None, False, torch.float32),      # non-causal
     (2, 160, 2, 2, 64, None, None, True, torch.bfloat16),
+    (2, 256, 32, 32, 96, None, None, True, torch.float32),     # the training shape
+    (1, 512, 16, 2, 128, None, None, True, torch.float32),     # Jamba's head_dim, GQA 8
+    (3, 1, 8, 2, 32, None, None, True, torch.float32),         # S = 1
+    (2, 63, 8, 2, 64, None, None, True, torch.float32),        # both sides of a
+    (2, 65, 16, 4, 128, None, None, True, torch.float32),      # 64-row tile
+    (1, 200, 4, 2, 160, None, None, True, torch.float32),      # the SIMT route
+    (2, 200, 8, 2, 128, None, None, True, torch.bfloat16),     # bf16 on the tensor cores
 ]
 
 
@@ -99,6 +107,31 @@ def test_flash_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_long_row_one_sign(dev):
+    """A causal row of 16384 keys, q/k uniform in [0, 1), V in [1, 1.1):
+    sums of one sign over 256 key tiles, where an output that the tensor
+    core carried across tiles (it truncates its sums) would drift."""
+    rng = np.random.default_rng(20)
+    S, D = 16384, 128
+
+    def u(shape, lo=0.0, width=1.0):
+        return torch.from_numpy((lo + width * rng.random(shape)).astype(np.float32)).to(dev)
+
+    q, k, v = u((1, S, 2, D)), u((1, S, 1, D)), u((1, S, 1, D), 1.0, 0.1)
+    out = ops.flash_attention_op(q, k, v)
+    ref = ops.plain_flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_kernel_deterministic(dev):
+    """No atomics: two runs on the same inputs give the same bits."""
+    rng = np.random.default_rng(21)
+    q, k, v = (_rand(rng, (2, 512, 32, 96), dev) for _ in range(3))
+    a, b = (ops.flash_attention_op(q, k, v) for _ in range(2))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 SWIGLU_CASES = [
