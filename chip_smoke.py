@@ -32,8 +32,11 @@ vocab 65536):
    quantize / dequantize (int8 and fp8) bitwise at the boundary shape and
    at the largest gradient leaf, ``roundtrip_ef`` bitwise at a bucket's
    size, the flash-attention backward and the SwiGLU backward at the
-   training shapes; times each beside its bound, its plain version and
-   (attention) SDPA forward + backward;
+   training shapes; the backward also two runs bitwise equal, at GQA /
+   window / non-causal / ragged / bf16 edges on both of its routes (head_dim
+   32-128 on the tensor cores, 100 on the SIMT kernels) and on 8192 causal
+   rows with one-sign dO and V; times each beside its bound, its plain
+   version and (attention) SDPA forward + backward;
 3c. holds the Mamba selective-scan kernel against its plain version at the
    Jamba prefill's shape (2, 1024, 16384, 16) and at edges (d_state 8,
    ragged d and S, S = 1, B = 1), timed beside its bound;
@@ -86,9 +89,10 @@ vocab 65536):
    lockstep decode at batch 8, prompt 64 + gen 64 (the serve launcher's
    loop); every kernel's launch count checked; device-busy share of a
    decode step from a profiler trace;
-9. reads the flash forward's device time at the training shape beside
-   SDPA's kernels' (a profiler trace, last because tracing slows later
-   launches), prints a ``{"kernels": [...]}`` line (all nine kernels, with their
+9. reads device times at the training shape from profiler traces (last,
+   because tracing slows later launches): the flash forward beside SDPA's
+   forward, the flash backward alone, and the port's forward with the
+   logsumexp plus its backward beside SDPA's forward plus backward; prints a ``{"kernels": [...]}`` line (all nine kernels, with their
    launches on the phi3 serving, phi3 training, Jamba serving and rwkv6-7b
    serving paths) and, last, ``{"ok": true, ...}``.
 
@@ -238,8 +242,16 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check(err: float, tol: float, what: str) -> None:
-    print(f"  {what}: max abs err {err:.3e} (tol {tol:g})")
+def max_err_rel(a, b) -> float:
+    """max |a - b| / (1 + |b|): within tol, a and b agree to tol absolute
+    and relative, as ``torch.testing.assert_close(a, b, atol=tol,
+    rtol=tol)`` holds the card tests' results (within a factor below 2)."""
+    b = b.float()
+    return float(((a.float() - b).abs() / (1 + b.abs())).max())
+
+
+def check(err: float, tol: float, what: str, kind: str = "max abs err") -> None:
+    print(f"  {what}: {kind} {err:.3e} (tol {tol:g})")
     if not err <= tol:
         raise AssertionError(f"{what}: kernel and plain version disagree: {err} > {tol}")
 
@@ -387,21 +399,47 @@ def phase_flash(torch, ops, F, dev) -> dict:
     return entry
 
 
-def phase_flash_device(torch, ops, F, dev, entry: dict) -> None:
-    """The flash forward's device time at the training shape, beside SDPA's
-    kernels', added to the entry's ``"train"``: there a call from Python can
-    spend as long on the host as the kernel takes, and the CUDA-event time
-    then reads the host.  Run last: the profiler's tracing, once started,
-    slows the launches of every later phase."""
+def phase_flash_device(torch, ops, F, dev, entries: dict) -> None:
+    """Device times at the training shape from profiler traces, where a
+    call from Python can spend as long on the host as its kernels take (the
+    CUDA-event time then reads the host): the flash forward beside SDPA's
+    forward kernels, into the forward's entry's ``"train"``; the backward
+    alone, and the port's forward with the logsumexp plus its backward
+    beside SDPA's forward plus backward, into the backward's entry.  Run
+    last: the profiler's tracing, once started, slows the launches of every
+    later phase."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
     B, S, H, D = 2, 256, 32, 96
     g = torch.Generator(device=dev).manual_seed(19)
     q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).mul_(0.5) for _ in range(3))
+    dout = torch.randn((B, S, H, D), generator=g, device=dev)
     dev_ms = device_ms(lambda: ops.flash_attention_op(q, k, v), torch)
     lib_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True), torch)
     print(f"  flash_attention ({B}, {S}, {H}, {D}) device time: kernel {dev_ms:.4f} ms, "
           f"SDPA {lib_dev_ms:.4f} ms")
-    entry["train"].update(device_ms=dev_ms, library_device_ms=lib_dev_ms)
+    entries["flash_attention"]["train"].update(device_ms=dev_ms, library_device_ms=lib_dev_ms)
+
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    bwd_ms = device_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout), torch)
+
+    def port():
+        o, ls = flash_attention(q, k, v, return_lse=True)
+        flash_attention_bwd(q, k, v, o, ls, dout)
+
+    qt_, kt_, vt_ = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt_, kt_, vt_, is_causal=True)
+        torch.autograd.grad(o, (qt_, kt_, vt_), dout.transpose(1, 2))
+
+    port_ms, sdpa_ms = device_ms(port, torch), device_ms(sdpa, torch)
+    print(f"  flash_attention_bwd ({B}, {S}, {H}, {D}) device time: backward {bwd_ms:.4f} ms; "
+          f"forward with logsumexp + backward {port_ms:.4f} ms, SDPA forward + backward "
+          f"{sdpa_ms:.4f} ms")
+    entries["flash_attention_bwd"].update(device_ms=bwd_ms, fwd_bwd_device_ms=port_ms,
+                                          library_device_ms=sdpa_ms)
 
 
 def cublas_swiglu(F, x, wg, wu, wd):
@@ -580,9 +618,63 @@ def phase_quant(torch, dev) -> list:
             for name, line in (("quantize_tiles", 70), ("dequantize_tiles", 81))]
 
 
+BWD_EDGES = [
+    # (B, S, H, Hkv, D, window, causal, dtype): GQA, window, non-causal; the
+    # tensor-core route at head_dim 32, 64, 96, 128 (and 40, padded to 64);
+    # S = 1 and both sides of a 64-row tile; head_dim 100 (the SIMT route);
+    # bf16 (held absolute and relative, as tests/test_torch_cuda.py holds it:
+    # a bf16 gradient of 4 or more is 2^-5 or more a step)
+    (2, 192, 8, 2, 64, None, True, "float32"),
+    (1, 256, 4, 1, 128, 64, True, "float32"),
+    (2, 130, 4, 4, 96, None, False, "float32"),
+    (2, 200, 8, 2, 32, None, True, "float32"),
+    (1, 300, 8, 2, 96, None, True, "float32"),
+    (1, 256, 16, 2, 128, None, True, "float32"),
+    (1, 200, 4, 2, 40, None, True, "float32"),
+    (1, 190, 4, 4, 96, 70, False, "float32"),
+    (3, 1, 8, 2, 64, None, True, "float32"),
+    (2, 63, 8, 2, 96, None, True, "float32"),
+    (2, 65, 4, 4, 128, None, True, "float32"),
+    (1, 150, 4, 2, 100, None, True, "float32"),
+    (2, 160, 4, 2, 64, None, True, "bfloat16"),
+    (2, 128, 4, 1, 96, 50, True, "bfloat16"),
+]
+
+
+def flash_bwd_bound(B, S, H, D):
+    """``flash_attention_bwd``'s least time: q, k, v, o and dO read once,
+    dq, dk and dv written once, the logsumexp read (fp32), or its five
+    products, 10·D flops a (query, valid key) pair, as 3xTF32 on the tensor
+    cores."""
+    pairs = B * H * (S * (S + 1) // 2)
+    nbytes = 4 * (8 * B * S * H * D + B * H * S)
+    return bound(nbytes, 0, tf32x3=10 * D * pairs)
+
+
+def attention_bwd_float64(torch, q, k, v, dout):
+    """(dq, dk, dv) of causal attention (B, S, H, D) with GQA, in float64:
+    the closed form (dS = P (dP - rowsum(dO O))), a reference for sums too
+    long for fp32."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qd, dd = (t.double().transpose(1, 2) for t in (q, dout))
+    kd, vd = (t.double().repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = (qd @ kd.transpose(-1, -2) * D ** -0.5).masked_fill_(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    ds = p * (dd @ vd.transpose(-1, -2) - (dd * (p @ vd)).sum(-1, keepdim=True))
+    dq = (ds @ kd * D ** -0.5).transpose(1, 2)
+    dk = (ds.transpose(-1, -2) @ qd * D ** -0.5).transpose(1, 2)
+    dv = (p.transpose(-1, -2) @ dd).transpose(1, 2)
+    return dq, dk.reshape(B, S, Hkv, G, D).sum(3), dv.reshape(B, S, Hkv, G, D).sum(3)
+
+
 def phase_flash_bwd(torch, ops, F, dev) -> dict:
     """The flash-attention backward at the training shape, causal, against
-    autograd of the plain version; SDPA forward + backward as yardstick."""
+    autograd of the plain version, at edge cases, on a long one-sign case
+    and for determinism; SDPA forward + backward as yardstick."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 
     B, S, H, D = 2, 256, 32, 96
@@ -594,20 +686,49 @@ def phase_flash_bwd(torch, ops, F, dev) -> dict:
     want = ops.plain_flash_attention_bwd(q, k, v, dout)
     err = max(max_err(a, b) for a, b in zip(got, want))
     check(err, TOL_FP32, f"flash_attention_bwd ({B}, {S}, {H}, {D}) causal dq/dk/dv")
+    same = all(bitwise_equal(torch, a, b) for a, b in
+               zip(got, flash_attention_bwd(q, k, v, out, lse, dout)))
+    print(f"  flash_attention_bwd ({B}, {S}, {H}, {D}): two runs bitwise "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("flash_attention_bwd: not deterministic")
 
-    for (b, s, h, hkv, d, win, causal) in [(2, 192, 8, 2, 64, None, True),
-                                           (1, 256, 4, 1, 128, 64, True),
-                                           (2, 130, 4, 4, 96, None, False)]:
-        qq = torch.randn((b, s, h, d), generator=g, device=dev).mul_(0.5)
-        kk, vv = (torch.randn((b, s, hkv, d), generator=g, device=dev).mul_(0.5)
+    for (b, s, h, hkv, d, win, causal, dtype) in BWD_EDGES:
+        dt = getattr(torch, dtype)
+        qq = torch.randn((b, s, h, d), generator=g, device=dev).mul_(0.5).to(dt)
+        kk, vv = (torch.randn((b, s, hkv, d), generator=g, device=dev).mul_(0.5).to(dt)
                   for _ in range(2))
-        do = torch.randn((b, s, h, d), generator=g, device=dev)
+        do = torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
         o, ls = flash_attention(qq, kk, vv, causal=causal, window=win, return_lse=True)
-        e = max(max_err(x, y) for x, y in zip(
-            flash_attention_bwd(qq, kk, vv, o, ls, do, causal=causal, window=win),
-            ops.plain_flash_attention_bwd(qq, kk, vv, do, causal=causal, window=win)))
-        check(e, TOL_FP32, f"flash_attention_bwd edge B={b} S={s} H={h} Hkv={hkv} D={d} "
-                           f"window={win} causal={causal}")
+        pairs = list(zip(flash_attention_bwd(qq, kk, vv, o, ls, do, causal=causal, window=win),
+                         ops.plain_flash_attention_bwd(qq, kk, vv, do, causal=causal,
+                                                       window=win)))
+        what = (f"flash_attention_bwd edge B={b} S={s} H={h} Hkv={hkv} D={d} window={win} "
+                f"causal={causal} {dtype}")
+        if dt == torch.float32:
+            check(max(max_err(x, y) for x, y in pairs), TOL_FP32, what)
+        else:
+            check(max(max_err_rel(x, y) for x, y in pairs), TOL_BF16["attention"], what,
+                  "max |err| / (1 + |plain|)")
+
+    # 8192 causal rows, q/k in [0, 1), dO and V in [1, 1.1): one-sign sums
+    # over up to 128 tiles (dV's over queries, dK's and dQ's too), which
+    # the tensor core, which truncates, would drift on.  dV reaches ~20
+    # here, where the plain version's own fp32 sums over 8192 queries are
+    # off by more than 1e-4: the kernel is held to it absolute and relative
+    # (as tests/test_torch_cuda.py holds it), and to a float64 evaluation of
+    # the same function absolute.
+    qq, kk = (torch.rand((1, 8192, n, 128), generator=g, device=dev) for n in (2, 1))
+    vv = torch.rand((1, 8192, 1, 128), generator=g, device=dev).mul_(0.1).add_(1.0)
+    do = torch.rand((1, 8192, 2, 128), generator=g, device=dev).mul_(0.1).add_(1.0)
+    o, ls = flash_attention(qq, kk, vv, return_lse=True)
+    got = flash_attention_bwd(qq, kk, vv, o, ls, do)
+    what = "flash_attention_bwd long causal (1, 8192, 2/1, 128), dO and V around 1"
+    check(max(max_err_rel(x, y) for x, y in zip(got, ops.plain_flash_attention_bwd(
+        qq, kk, vv, do))), TOL_FP32, what, "max |err| / (1 + |plain|)")
+    check(max(max_err(x, y) for x, y in zip(got, attention_bwd_float64(torch, qq, kk, vv, do))),
+          TOL_FP32, what + ", against float64")
+    del qq, kk, vv, do, o, ls, got
 
     ms = time_ms([lambda: flash_attention_bwd(q, k, v, out, lse, dout)], torch)
     plain_ms = time_ms([lambda: ops.plain_flash_attention_bwd(q, k, v, dout)], torch)
@@ -619,9 +740,7 @@ def phase_flash_bwd(torch, ops, F, dev) -> dict:
         torch.autograd.grad(o, (qt_, kt_, vt_), dt_)
 
     lib_ms = time_ms([sdpa], torch)
-    pairs = B * H * (S * (S + 1) // 2)
-    nbytes = 4 * (8 * B * S * H * D + B * H * S)    # q k v o dO read, dq dk dv written, lse
-    bms, by = bound(nbytes, 10 * D * pairs)
+    bms, by = flash_bwd_bound(B, S, H, D)
     print(f"  flash_attention_bwd: kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
           f"SDPA fwd+bwd {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -1219,8 +1338,12 @@ def profile_train_step(torch, ts, params, opt_state, batch):
               f"{e.key[:90]}")
     # the port's own kernels, by the CUDA function names in csrc/
     ours = {"flash_attention_wgmma_kernel": "flash_attention",
-            "flash_attention_simt_kernel": "flash_attention", "row_dot_kernel": "flash_attention_bwd",
-            "dkdv_kernel": "flash_attention_bwd", "dq_kernel": "flash_attention_bwd",
+            "flash_attention_simt_kernel": "flash_attention",
+            "flash_bwd_row_dot_kernel": "flash_attention_bwd",
+            "flash_bwd_dkdv_wgmma_kernel": "flash_attention_bwd",
+            "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd",
+            "flash_bwd_dkdv_simt_kernel": "flash_attention_bwd",
+            "flash_bwd_dq_simt_kernel": "flash_attention_bwd",
             "wgmma_gemm_kernel": "fused_swiglu", "skinny_kernel": "fused_swiglu",
             "swiglu_bwd_": "swiglu_bwd", "dequantize_": "dequantize_tiles",
             "quantize_": "quantize_tiles"}
@@ -1625,8 +1748,8 @@ def main() -> int:
     print("phase 8a: an rwkv6-7b layer at full width, card vs CPU")
     phase_rwkv_layer(torch, dev)
     rwkv = phase_rwkv_serve(torch, ops, dev, card)
-    print("phase 9: the flash forward's device time at the training shape")
-    phase_flash_device(torch, ops, F, dev, next(e for e in entries if e["name"] == "flash_attention"))
+    print("phase 9: flash attention's device times at the training shape")
+    phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}

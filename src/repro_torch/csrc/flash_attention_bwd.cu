@@ -16,46 +16,91 @@
 // A logit softcap would need tanh' inside dS; it has no kernel here, and the
 // Python wrapper raises NotImplementedError for it.
 //
-// Bound on the card: operations.  The five products come to 10 * D flops
-// per (query, valid key) pair, 2.5x the forward's 4 * D; at the slice's
-// training shape (2, 256, 32, 96) causal that is 0.8 GFLOP against 25 MB
-// of q/k/v/o/dO/dq/dk/dv/LSE, ~32 flops per byte, above the fp32 ridge of
-// ~20.
+// Bound on the card: bytes.  q, k, v, o and dO read once, dq, dk and dv
+// written once, and the logsumexp: at the training shape (2, 256, 32, 96)
+// causal fp32, 50.4 MB at 3.35 TB/s = 0.0150 ms; the five products' 10 * D
+// flops a (query, valid key) pair as three TF32 passes at 495 TFLOP/s take
+// 0.0122 ms.
 //
-// Design: three launches, no atomics, so the result is deterministic.
-//   1. one warp per (b, h, row): Dvec = rowsum(dO * O) into a (B, H, S)
-//      float32 scratch.
-//   2. dK/dV: one block of 256 threads per (64-key tile, kv head, batch
-//      row).  K and V stay in shared memory; the block loops over the q
-//      heads of its GQA group and over the 64-query tiles that can see its
-//      keys (causal: q >= k; window: q < k + window), recomputing S^T and
-//      dP^T as 4 x 4 register tiles per thread, writing P^T and dS^T to
-//      shared memory, then accumulating dV += P^T dO and dK += dS^T Q in
-//      4 x (D/16) register tiles.  Summing the group's heads inside the
-//      block is what GQA's shared K/V needs, without atomics.
-//   3. dQ: one block per (64-query tile, head, batch row), looping over the
-//      key tiles the queries can see, recomputing S and dP, and
-//      accumulating dQ += dS K.
-// Products 1-2 recompute S and dP twice (once per pass): 14 * D flops per
-// pair instead of the 10 * D minimum, the price of no atomics.  q, k, v and
-// dO are read in the model layout (B, S, H, D) by strides; the ragged tail
-// of S is masked.  Plain SIMT fp32; head_dim <= 128.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Three launches, no atomics (two runs give the same bits): Dvec by rows,
+// then dK/dV by key tile, then dQ by query tile.  The two passes recompute
+// S and dP (14 * D flops a pair instead of 10 * D), the price of keeping
+// dQ free of atomics and of a scratch buffer for per-tile partials, which
+// the C interface has no room for.
+//
+// Two routes, chosen by head_dim D and the rows' alignment (a launch that
+// fails raises; nothing gives way to another route):
+//
+// D <= 128 with D % 8 == 0 (phi3's 96, Jamba's 128) and rows that can be
+// copied 4 elements at a time (bases and strides aligned to 4 elements):
+// every product on the tensor cores through wgmma, 3xTF32 (each fp32
+// operand v, P and dS included, split into hi = tf32(v) and lo = tf32(v -
+// hi); each product sums lo*hi + hi*lo + hi*hi).  One pass on any one of the five products
+// misses the fp32 tolerance (tests/test_torch_attention_bwd_tf32.py shows
+// it on the CPU); bf16 inputs run the same passes (their lo parts are zero).
+//   * A block is four warpgroups: two stagers and two consumers.  The
+//     stagers (even and odd chunks) copy 64-row x 32-column chunks of q, k,
+//     v and dO in the model layout (B, S, H, D) by strides (the ragged tail
+//     of S zero-filled, not padded) with cp.async into small raw rings, so
+//     that chunks are in flight without holding registers, then split each
+//     and store it in wgmma's K-major layout, either as it lies (head_dim
+//     the contraction) or transposed with the forward's 8-step row
+//     permutation (rows the contraction).  Two operands stay resident for
+//     the block (K and V, or Q and dO); the others stream through a ring of
+//     16 KB slots.  Staging sets the time: a product needs 3 chunks (the
+//     forward 1.5), and a second stager was worth 15%.
+//   * dK/dV pass, a block per (64-key tile, kv head, batch row), looping
+//     over the GQA group's q heads and the 64-query tiles that see its keys
+//     (so dK/dV are summed over the group without atomics).  Rows are keys:
+//     consumer 0 computes S^T = K Q^T and P^T, hands P^T to consumer 1
+//     through shared memory, and accumulates dV += P^T dO; consumer 1
+//     computes dP^T = V dO^T, dS^T = P^T (dP^T - Dvec) and dK += dS^T Q.
+//     P^T and dS^T are the accumulators of transposed products, so their
+//     registers are the A fragments of the next product as they stand; their
+//     B operands (dO, Q over queries) are staged transposed.
+//   * dQ pass, a block per (64-query tile, head, batch row): consumer 0
+//     computes S = Q K^T and P, consumer 1 dP = dO V^T, dS and dQ += dS K
+//     (K staged transposed).
+//   * Shared by two consumers, a ring slot's "filled" signal is an
+//     mbarrier per (slot, consumer), with the consumer's phase bit per
+//     slot; "read" is one mbarrier per slot.  Named barriers could not say
+//     for whom a slot was filled.
+//   * Long sums: the tensor core truncates its fp32 sums, so each tile's
+//     dV, dK and dQ are summed from zero in 32-column chunks and added to the
+//     running sums in fp32 (8192 causal rows of one-sign dO and V in
+//     chip_smoke.py and tests/test_torch_cuda.py hold it).
+//   * Cancellation: dS = P (dP - Dvec) subtracts two sums over head_dim
+//     that are large when V and O share an offset (one-sign data: both ~141
+//     at head_dim 128 for a difference ~0.3), and dP's truncated sums then
+//     leave an error of ~1e-4 in dK.  So the stagers subtract mu = V's row
+//     0 (of the kv head) from every staged V row and the row pass takes
+//     Dvec = rowsum(dO * (O - mu)): dP - Dvec is unchanged, both terms are
+//     small.
+//
+// Other D <= 128, or unaligned rows: the SIMT kernels, a block of 256
+// threads per (64-key tile, kv head, batch row) and per (64-query tile,
+// head, batch row), 4 x 4 register tiles of S^T/dP^T and S/dP, plain fp32
+// FMAs.
+//
+// Measured (chip_smoke.py phases 3b and 9 and chip_flash_bwd_ablation.py,
+// NVIDIA H100 80GB HBM3 at 700.00 W) at the training shape: 0.1032 ms of
+// device time (0.1116 through the Python wrapper), 6.9x the 0.0150 ms
+// bound; the old SIMT kernels took 0.3245; the forward with the logsumexp
+// plus this backward take 0.1389 ms against SDPA's forward plus backward,
+// 0.2201.  Without the stagers' global loads it reads 0.0879, without the
+// products 0.0781, without the ring stores 0.0922: staging holds it back.
+// ptxas: 128 registers at launch (setmaxnreg 56 staging / 200 multiplying,
+// 64 / 192 at head_dim 128), no spills.
+#include <type_traits>
+
+#include "tc_tf32.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// SIMT route (head_dim not a multiple of 8, or unaligned rows): fp32 FMAs.
+// ---------------------------------------------------------------------------
 constexpr int BQ = 64, BK = 64, kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides { long long b, s, h; };
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
   bool ok = qpos < S && kpos < S;
@@ -64,12 +109,16 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, i
   return ok;
 }
 
-// Dvec[(b * H + h) * S + i] = sum_d dO[b, i, h, d] * O[b, i, h, d]
-template <typename T>
+// Dvec[(b * H + h) * S + i] = sum_d dO[b, i, h, d] * (O[b, i, h, d] - mu_d): mu
+// is row 0 of V at the q head's kv head where v is given (the tensor-core
+// route, which stages V - mu: see its note; its rows are 4-element aligned,
+// so a lane reads 4 elements at once), else zero (the SIMT route).  A warp
+// a row.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-               float* __restrict__ dvec, int B, int S, int H, int D, Strides os,
-               Strides ds) {
+flash_bwd_row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+               const T* __restrict__ v, float* __restrict__ dvec, int B, int S, int H,
+               int G, int D, Strides os, Strides ds, Strides vs) {
   const long long rows = (long long)B * H * S;
   const long long r = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (r >= rows) return;
@@ -77,8 +126,24 @@ row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const int i = (int)(r % S), h = (int)((r / S) % H), b = (int)(r / ((long long)S * H));
   const T* orow = out + b * os.b + i * os.s + h * os.h;
   const T* drow = dout + b * ds.b + i * ds.s + h * ds.h;
+  const T* mrow = v + b * vs.b + (h / G) * vs.h;   // used by VEC only
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+  if constexpr (VEC) {   // D <= 128: 4 elements a lane
+    using E = typename std::conditional<sizeof(T) == 4, float, uint16_t>::type;
+    const int d = 4 * lane;
+    if (d < D) {
+      const float4 o = load4(reinterpret_cast<const E*>(orow) + d, true);
+      const float4 m = load4(reinterpret_cast<const E*>(mrow) + d, true);
+      const float4 g = load4(reinterpret_cast<const E*>(drow) + d, true);
+      acc = (o.x - m.x) * g.x + (o.y - m.y) * g.y + (o.z - m.z) * g.z + (o.w - m.w) * g.w;
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {   // D <= 128: every load of the row at once
+      const int d = lane + 32 * it;
+      if (d < D) acc += to_f(orow[d]) * to_f(drow[d]);
+    }
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) dvec[r] = acc;
@@ -87,11 +152,12 @@ row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // NDK = ceil(D / 16): head_dim columns of an accumulator tile per thread.
 template <typename T, int NDK>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv,
-            int S, int H, int Hkv, int D, Strides qs, Strides ks, Strides vs,
-            Strides dos, float scale, int causal, int window) {
+flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ dvec,
+                           T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv,
+                           int D, Strides qs, Strides ks, Strides vs, Strides dos, float scale,
+                           int causal, int window) {
   extern __shared__ float smem[];
   const int DS = D + 1;                       // padded row stride: no bank conflicts
   float* Ks = smem;                           // BK x DS
@@ -225,11 +291,12 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
 template <typename T, int NDK>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ dvec, T* __restrict__ dq, int S, int H,
-          int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
-          float scale, int causal, int window) {
+flash_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ dvec,
+                         T* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
+                         Strides ks, Strides vs, Strides dos, float scale, int causal,
+                         int window) {
   extern __shared__ float smem[];
   const int DS = D + 1;
   float* Qs = smem;                           // BQ x DS
@@ -345,56 +412,718 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route (head_dim D <= 128, D % 8 == 0): 3xTF32 wgmma.
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;               // keys or queries a tile
+constexpr int kCh = 32;                 // head_dim columns a chunk
+constexpr int kPart = kTile * kCh;      // words of a chunk's hi or lo part
+constexpr int kChunk = 2 * kPart;       // words of a chunk: hi, then lo (16 KB)
+// a raw chunk as loaded: 64 rows of 32 elements at a pitch of 36 (16-byte
+// runs of 8 consecutive rows fall on distinct banks), fp32 or bf16
+constexpr int kPitch = 36, kRawWords = kTile * kPitch;
+
+// Shared memory: the block's two resident operands (K and V, or Q and dO),
+// DP / 32 chunks each; the 64 x 64 fp32 tile that hands P from one
+// consumer warpgroup to the other; a ring of NS chunk slots (at most 6); NR
+// raw chunks a stager, in flight from global memory; V's row 0 (mu, below);
+// and the block's mbarriers (Bars).
+//
+// Four warpgroups: two stage (even and odd items), two multiply.  512
+// threads are launched at 128 registers each (65536 / 512); the stagers,
+// which hold no loads in registers, give registers up to the consumers with
+// setmaxnreg (2 STAGE + 2 MUL = 4 x 128), whose running 64 x DP sums (DP / 2
+// registers), the A fragments of a 64 x 64 tile (64) and a 64 x 32 chunk
+// product (16) must fit.  Chosen by ptxas -v: no spills (at head_dim 128
+// the stager needs 64).
+template <int DP>
+struct BwdTile {
+  static constexpr int C = DP / kCh;
+  static constexpr int THREADS = 512;
+  static constexpr int LAUNCH_REGS = 128;
+  static constexpr int STAGE_REGS = DP == 128 ? 64 : 56, MUL_REGS = DP == 128 ? 192 : 200;
+  static_assert(2 * STAGE_REGS + 2 * MUL_REGS <= 4 * LAUNCH_REGS,
+                "setmaxnreg would wait forever");
+  static constexpr int RES_WORDS = 2 * C * kChunk, P_WORDS = kTile * kTile;
+  static constexpr int NR = DP == 128 ? 1 : 2;   // raw slots a stager: chunks in flight
+  static constexpr int FIT =
+      (232448 / 4 - RES_WORDS - P_WORDS - 2 * NR * kRawWords - 128 - 64) / kChunk;
+  // even, so that each ring slot has one stager (its parity), and at most 6
+  static constexpr int NS = FIT < 6 ? FIT / 2 * 2 : 6;
+  static_assert(NS >= C, "a product's chunks must fit in the ring at once");
+  static constexpr int RAW_WORDS = RES_WORDS + P_WORDS + NS * kChunk;   // where raw sits
+  static constexpr int MU_WORDS = RAW_WORDS + 2 * NR * kRawWords;       // where mu sits
+  static constexpr int BAR_WORDS = MU_WORDS + 128;                      // where Bars sit
+  static constexpr int SMEM = 4 * BAR_WORDS + 256;
+};
+
+// ---- mbarriers --------------------------------------------------------------
+//
+// The ring's slots serve two consumer warpgroups in turn, so a slot's
+// "filled" signal must say for whom: each consumer warpgroup has its own
+// full barrier per slot and tracks its phase there (a bit per slot), and
+// waits only for its own items.  A slot has one stager (NS is even, and a
+// stager takes every other item).  Every barrier but res expects the 128
+// threads of one warpgroup.  A waiter is never more than one phase behind
+// or ahead of the barrier it waits on, so a parity names the phase:
+//   res          the resident operands staged (both stagers -> consumers)
+//   full[w][s]   ring slot s filled for consumer w (its stager -> w)
+//   empty[s]     ring slot s read (its consumer -> its stager), which waits
+//                for item r - NS before it stores item r
+//   pfull/pempty P handed over / its buffer read (consumer 0 <-> 1)
+struct Bars {
+  uint64_t res, pfull, pempty, full[2][6], empty[6];
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// arrive with release semantics: this thread's earlier shared-memory
+// writes are visible to the threads that see the phase complete
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// One 64 x 32 chunk for the stager: rows row0..row0+63 (zero at rows >= S)
+// and head_dim columns 32 ch.. (zero at columns >= cols of the chunk) of
+// one operand's (batch row, head) slice; K-major as it lies (head_dim the
+// contraction: the B operand of Q K^T-like products, or a resident A), or
+// transposed with the 8-step row permutation of store_vt (rows the
+// contraction: the B operand of P^T dO, dS^T Q and dS K).
+template <typename E>
+struct Chunk {
+  const E* src;        // row 0, column 32 ch of the slice
+  long long rs;        // row stride in elements
+  int row0, cols;
+  bool trans;
+  int to;              // the consumer warpgroup of a ring item
+  int mu_col;          // V rows: mu's column of the chunk, subtracted; else -1
+};
+
+// cp.async: 4 elements (16 bytes fp32, 8 bytes bf16) from global to shared
+// memory without registers, zero-filled where `valid` is false; a thread's
+// copies are a group, waited for N groups before the newest
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A chunk's 64 rows x 32 elements into a raw slot (rows at kPitch
+// elements), zero at rows >= S and columns >= cols: 8 threads a row, each 4
+// elements.  Needs rows and their base aligned to 4 elements.
+template <typename E>
+__device__ __forceinline__ void copy_chunk(E* raw, const Chunk<E>& c, int S) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int u = it * 128 + threadIdx.x % 128, row = u / 8, col = 4 * (u % 8);
+    const bool valid = c.row0 + row < S && col < c.cols;
+    cp_async<4 * sizeof(E)>(raw + row * kPitch + col,
+                            valid ? c.src + (c.row0 + row) * c.rs + col : c.src, valid);
+  }
+}
+
+// A raw chunk into registers as store_chunk takes it: rows as load_rows<32>
+// hands them over (RowUnit<32>); a transposed chunk as rows too: lane
+// 4 m + e of warp w takes row 8 u + p + 2 e and columns 4 m..4 m + 3 in
+// pass it, where 2 u + p = 4 it + w is store_vt's 4-slot group, and
+// transpose4 then hands lane n column n of those 4 rows.  Both read 8 rows
+// of one 16-byte column run per 8 lanes: distinct banks at kPitch.
+template <typename E>
+__device__ __forceinline__ void read_chunk(float4 (&x)[4], const E* raw, bool trans) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    int row, col;
+    if (!trans) {
+      const RowUnit<kCh> u(it);
+      row = u.n;
+      col = 4 * u.c;
+    } else {
+      const int q = it * 4 + (threadIdx.x / 32) % 4;
+      row = 8 * (q / 2) + q % 2 + 2 * (lane % 4);
+      col = 4 * (lane / 4);
+    }
+    x[it] = load4(raw + row * kPitch + col, true);
+  }
+}
+
+// lanes 4 j..4 j + 3 holding rows e = 0..3 of 4 columns hand lane 4 j + k
+// column k of the 4 rows: two exchanges of halves, with lane ^ 2, then ^ 1
+__device__ __forceinline__ void transpose4(float4& v) {
+  const int e = threadIdx.x % 4;
+  float a = e & 2 ? v.x : v.z, b = e & 2 ? v.y : v.w;
+  a = __shfl_xor_sync(0xffffffffu, a, 2);
+  b = __shfl_xor_sync(0xffffffffu, b, 2);
+  if (e & 2) v.x = a, v.y = b;
+  else v.z = a, v.w = b;
+  a = e & 1 ? v.x : v.y;
+  b = e & 1 ? v.z : v.w;
+  a = __shfl_xor_sync(0xffffffffu, a, 1);
+  b = __shfl_xor_sync(0xffffffffu, b, 1);
+  if (e & 1) v.x = a, v.z = b;
+  else v.y = a, v.w = b;
+}
+
+// x - mu for a chunk of rows as load_rows<32> hands it over (RowUnit<32>)
+__device__ __forceinline__ void sub_mu(float4 (&x)[4], const float* mu) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const float4 m = *reinterpret_cast<const float4*>(mu + 4 * RowUnit<kCh>(it).c);
+    x[it] = make_float4(x[it].x - m.x, x[it].y - m.y, x[it].z - m.z, x[it].w - m.w);
+  }
+}
+
+__device__ __forceinline__ void store_chunk(const float4 (&x)[4], uint32_t* dst, bool trans) {
+  if (!trans) {
+    store_rows<kCh>(x, dst, dst + kPart);
+    return;
+  }
+  float t[4][4];
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    float4 v = x[it];
+    transpose4(v);
+    t[it][0] = v.x;
+    t[it][1] = v.y;
+    t[it][2] = v.z;
+    t[it][3] = v.w;
+  }
+  store_vt<kCh>(t, dst, dst + kPart);
+}
+
+// Staging warpgroup `which` (0 or 1): chunk items which, which + 2, ... of
+// `item`.  The first 2 C are the resident operands; item 2 C + r goes to
+// ring slot r % NS once ring item r - NS is read.  A stager's k-th item is
+// copied by cp.async into its raw slot k % NR, NR items ahead of its split,
+// so that chunks are in flight without holding registers; a slot is copied
+// into again once its chunk is in registers.  mu_src: row 0 of V at the
+// block's kv head (staged by both stagers, the same values).
+template <int DP, typename E, typename ItemFn>
+__device__ __forceinline__ void stage(uint32_t* smem, Bars* bars, int which, int n_items,
+                                      ItemFn item, const E* mu_src, int S, int D) {
+  using Tl = BwdTile<DP>;
+  constexpr int NRES = 2 * Tl::C, NS = Tl::NS, NR = Tl::NR;
+  uint32_t* ring = smem + Tl::RES_WORDS + Tl::P_WORDS;
+  E* raw = reinterpret_cast<E*>(smem + Tl::RAW_WORDS + which * NR * kRawWords);
+  float* mu = reinterpret_cast<float*>(smem + Tl::MU_WORDS);
+  auto slot = [&](int k) { return raw + (k % NR) * kRawWords * 4 / sizeof(E); };
+  const int mine = (n_items - which + 1) / 2;   // this stager's items
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    if (k < mine) copy_chunk<E>(slot(k), item(which + 2 * k), S);
+    cp_async_commit();
+  }
+  for (int d = threadIdx.x % 128; d < DP; d += 128) mu[d] = d < D ? widen(mu_src[d]) : 0.f;
+  for (int k = 0; k < mine; ++k) {
+    const int i = which + 2 * k;
+    const Chunk<E> c = item(i);   // its flags only: the rest is dead code here
+    cp_async_wait<NR - 1>();      // this thread's copies of item i
+    bar_sync(1 + which, 128);     // everyone's (and mu)
+    float4 x[4];
+    read_chunk<E>(x, slot(k), c.trans);
+    bar_sync(1 + which, 128);     // the slot is read: copy the next chunk in
+    if (k + NR < mine) copy_chunk<E>(slot(k), item(which + 2 * (k + NR)), S);
+    cp_async_commit();
+    if (c.mu_col >= 0) sub_mu(x, mu + c.mu_col);
+    if (i < NRES) {
+      store_chunk(x, smem + i * kChunk, c.trans);
+      if (i >= NRES - 2) {   // this stager's last resident item
+        fence_proxy_async();
+        mbar_arrive(&bars->res);
+      }
+    } else {
+      const int r = i - NRES, s = r % NS;
+      if (r >= NS) mbar_wait(&bars->empty[s], (r / NS - 1) & 1);
+      store_chunk(x, ring + s * kChunk, c.trans);
+      fence_proxy_async();   // the generic stores, seen by wgmma's reads
+      mbar_arrive(&bars->full[c.to][s]);
+    }
+  }
+}
+
+// acc (64 x 64) = A B^T from zero on one warpgroup, 3xTF32 (lo*hi + hi*lo +
+// hi*hi each 8-deep step): A (64 rows x DP) resident as C chunks from `a`,
+// B (64 rows x DP) as C ring chunks; both K-major, core matrices 128 bytes
+// apart along head_dim and 1024 bytes along the rows.  One branch-free
+// batch from fence to wait.
+template <int C>
+__device__ __forceinline__ void ss_product(float (&acc)[32], const uint32_t* a,
+                                           const uint32_t* const (&b)[C]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0.f;
+    fence_reg(acc[i]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+    // the resident operand's descriptors, opaque: else the compiler keeps
+    // every step's in registers across the tile loop
+    const uint64_t dah = opaque(wgmma_desc(a + ch * kChunk, 128, 1024));
+    const uint64_t dal = opaque(wgmma_desc(a + ch * kChunk + kPart, 128, 1024));
+    const uint64_t dbh = wgmma_desc(b[ch], 128, 1024), dbl = wgmma_desc(b[ch] + kPart, 128, 1024);
+#pragma unroll
+    for (int u = 0; u < kCh / 8; ++u) {
+      wgmma_ss_n64(acc, dal + 16 * u, dbh + 16 * u, ch > 0 || u > 0);
+      wgmma_ss_n64(acc, dah + 16 * u, dbl + 16 * u, 1);
+      wgmma_ss_n64(acc, dah + 16 * u, dbh + 16 * u, 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) fence_reg(acc[i]);
+}
+
+// A 64 x 64 accumulator's values as the A fragments of its 8 column steps,
+// split into TF32 parts: a[0] = (row g, slot t) = column 8 u + 2 t = v[4 u],
+// a[1] = (row g + 8, slot t) = v[4 u + 2], a[2] = (row g, slot t + 4) =
+// column 8 u + 2 t + 1 = v[4 u + 1], a[3] = v[4 u + 3]; the B operand is
+// staged with the same permutation of its rows (store_vt)
+__device__ __forceinline__ void to_frags(const float (&v)[32], uint32_t (&h)[8][4],
+                                         uint32_t (&l)[8][4]) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int a = e == 1 ? 2 : e == 2 ? 1 : e;
+      split(v[4 * u + e], h[u][a], l[u][a]);
+    }
+}
+
+// Wait for ring item r of consumer warpgroup w, flipping w's phase bit of
+// its slot; returns the slot
+template <int NS>
+__device__ __forceinline__ int take(Bars* bars, int w, int r, uint32_t& phase) {
+  const int s = r % NS;
+  mbar_wait(&bars->full[w][s], (phase >> s) & 1);
+  phase ^= 1u << s;
+  return s;
+}
+
+// acc += X C, chunk by chunk of C's columns: X (64 x 64) as A fragments,
+// C's 64 rows staged transposed in ring items first.. (one a 32-column
+// chunk); each chunk's product is summed from zero and added in fp32, since
+// the tensor core truncates its sums
+template <int DP>
+__device__ __forceinline__ void frag_product(float (&acc)[DP / 2], uint32_t (&h)[8][4],
+                                             uint32_t (&l)[8][4], const uint32_t* ring,
+                                             Bars* bars, int w, int first, uint32_t& phase) {
+  constexpr int NS = BwdTile<DP>::NS;
+#pragma unroll
+  for (int n = 0; n < DP / kCh; ++n) {
+    const int s = take<NS>(bars, w, first + n, phase);
+    float tmp[kCh / 2];
+    pv_chunk<kCh, true>(tmp, h, l, ring + s * kChunk, ring + s * kChunk + kPart);
+    mbar_arrive(&bars->empty[s]);
+#pragma unroll
+    for (int i = 0; i < kCh / 2; ++i) acc[n * kCh / 2 + i] += tmp[i];
+  }
+}
+
+// The first product of a tile on consumer warpgroup w: the C ring items
+// from `first` (its B operand) against the resident operand `res`
+template <int DP>
+__device__ __forceinline__ void ring_product(float (&acc)[32], const uint32_t* res,
+                                             const uint32_t* ring, Bars* bars, int w, int first,
+                                             uint32_t& phase) {
+  constexpr int C = BwdTile<DP>::C, NS = BwdTile<DP>::NS;
+  const uint32_t* b[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) b[ch] = ring + take<NS>(bars, w, first + ch, phase) * kChunk;
+  ss_product<C>(acc, res, b);
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) mbar_arrive(&bars->empty[(first + ch) % NS]);
+}
+
+// A consumer warpgroup's running 64 x DP sums (acc[4 i + e]: row r0 + 8 (e
+// / 2), column 8 i + 2 t + e % 2) times mul, into rows < S of a (B, S, Hx,
+// D) output at element base + row * rstride
+template <int DP>
+__device__ __forceinline__ void store_acc(const float (&acc)[DP / 2], void* out, int bf16,
+                                          long long base, long long rstride, int r0, int S,
+                                          int D, float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col >= D) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r >= S) continue;
+      const float x0 = acc[4 * i + 2 * half] * mul, x1 = acc[4 * i + 2 * half + 1] * mul;
+      const long long idx = base + r * rstride + col;
+      if (bf16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) =
+            __floats2bfloat162_rn(x0, x1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(x0, x1);
+    }
+  }
+}
+
+// a (query, key) tile of 64 x 64 with every pair visible
+__device__ __forceinline__ bool tile_full(int q0, int k0, int S, int causal, int window) {
+  return q0 + kTile - 1 < S && k0 + kTile - 1 < S && (!causal || k0 + kTile - 1 <= q0) &&
+         (window <= 0 || k0 > q0 + kTile - 1 - window);
+}
+
+// The P hand-over buffer: thread j of either consumer warpgroup holds the
+// same accumulator positions, so value i of thread j sits at word 128 i + j
+// (conflict-free).  Tile n's P goes in once tile n - 1's is read.
+__device__ __forceinline__ void put_p(float* pbuf, Bars* bars, const float (&p)[32], int n) {
+  if (n > 0) mbar_wait(&bars->pempty, (n - 1) & 1);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pbuf[128 * i + threadIdx.x % 128] = p[i];
+  mbar_arrive(&bars->pfull);
+}
+
+// The block's barriers, set up by one thread before the warpgroups split
+__device__ __forceinline__ Bars* init_bars(uint32_t* at) {
+  Bars* bars = reinterpret_cast<Bars*>(at);
+  if (threadIdx.x == 0) {
+    mbar_init(&bars->res, 256);
+    mbar_init(&bars->pfull, 128);
+    mbar_init(&bars->pempty, 128);
+    for (int s = 0; s < 6; ++s) {
+      mbar_init(&bars->full[0][s], 128);
+      mbar_init(&bars->full[1][s], 128);
+      mbar_init(&bars->empty[s], 128);
+    }
+  }
+  __syncthreads();
+  return bars;
+}
+
+// dK and dV of one 64-key tile of one (batch row, kv head): the block
+// loops over the q heads of the GQA group and the 64-query tiles that see
+// its keys.  Consumer warpgroup 0: S^T = K Q^T, P^T (handed to warpgroup 1),
+// dV += P^T dO; warpgroup 1: dP^T = V dO^T, dS^T = P^T (dP^T - Dvec),
+// dK += dS^T Q.  Rows are keys and columns queries, so that P^T and dS^T
+// are A fragments as they stand.  Ring items of a tile: Q (rows), dO
+// (rows), dO (transposed), Q (transposed), C chunks each.
+template <int DP>
+__global__ void __launch_bounds__(BwdTile<DP>::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                            const void* __restrict__ v, const void* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ dvec,
+                            void* __restrict__ dk, void* __restrict__ dv, int B, int S, int H,
+                            int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
+                            float scale, int causal, int window, int bf16) {
+  using Tl = BwdTile<DP>;
+  constexpr int C = Tl::C;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(bwd_smem);
+  Bars* bars = init_bars(smem + Tl::BAR_WORDS);
+  // block -> (key tile, kv head, batch row), heads fastest; causal: the
+  // first key tiles see the most queries and run first
+  const int hb = blockIdx.x % (Hkv * B), kt = blockIdx.x / (Hkv * B);
+  const int hk = hb % Hkv, b = hb / Hkv, G = H / Hkv;
+  const int k0 = kt * kTile;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S, k0 + kTile - 1 + window) : S;
+  const int nq = (q_hi - q_lo + kTile - 1) / kTile;   // query tiles a q head
+  const int n_tiles = G * nq, n_ring = n_tiles * 4 * C;
+
+  if (threadIdx.x < 256) {   // the stagers
+    setmaxnreg_dec<Tl::STAGE_REGS>();
+    auto run = [&](auto zero) {
+      using E = decltype(zero);
+      const E* kp = static_cast<const E*>(k) + b * ks.b + hk * ks.h;
+      const E* vp = static_cast<const E*>(v) + b * vs.b + hk * vs.h;
+      const E* qp = static_cast<const E*>(q) + b * qs.b;
+      const E* dp = static_cast<const E*>(dout) + b * dos.b;
+      auto item = [&](int i) {
+        if (i < 2 * C) {
+          const int ch = i % C;
+          return i < C ? Chunk<E>{kp + kCh * ch, ks.s, k0, D - kCh * ch, false, 0, -1}
+                       : Chunk<E>{vp + kCh * ch, vs.s, k0, D - kCh * ch, false, 1, kCh * ch};
+        }
+        // Q rows (to 0), dO rows (1), dO transposed (0), Q transposed (1)
+        const int r = i - 2 * C, tile = r / (4 * C), kind = (r / C) % 4, ch = r % C;
+        const int h = hk * G + tile / nq, q0 = q_lo + (tile % nq) * kTile;
+        const bool is_q = kind == 0 || kind == 3;
+        const E* src = is_q ? qp + h * qs.h : dp + h * dos.h;
+        return Chunk<E>{src + kCh * ch, is_q ? qs.s : dos.s, q0, D - kCh * ch, kind >= 2,
+                        kind & 1, -1};
+      };
+      stage<DP, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, D);
+    };
+    if (bf16) run(uint16_t{});
+    else run(0.f);
+    return;
+  }
+
+  setmaxnreg_inc<Tl::MUL_REGS>();
+  const int w = threadIdx.x / 128 - 2;   // consumer warpgroup
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, t = lane % 4;
+  const int kr0 = k0 + 16 * warp + lane / 4, kr1 = kr0 + 8;   // this thread's keys
+  const uint32_t* res = smem + w * C * kChunk;                 // K (w = 0) or V (w = 1)
+  float* pbuf = reinterpret_cast<float*>(smem + Tl::RES_WORDS);
+  const uint32_t* ring = smem + Tl::RES_WORDS + Tl::P_WORDS;
+  const float scale_l2e = scale * kLog2e;
+  float acc[DP / 2];   // dV (w = 0) or dK / scale (w = 1)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float x[32];         // S^T then P^T (w = 0); dP^T then dS^T (w = 1)
+  uint32_t fh[8][4], fl[8][4];
+  uint32_t phase = 0;  // this warpgroup's full-barrier phase of each ring slot
+
+  mbar_wait(&bars->res, 0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int h = hk * G + tile / nq, q0 = q_lo + (tile % nq) * kTile;
+    const int first = tile * 4 * C;   // ring index of the tile's first item
+    // this thread's 16 query columns q0 + 8 i + 2 t + j: the logsumexp in
+    // base 2 (w = 0) or Dvec (w = 1)
+    const float* rowv = (w == 0 ? lse : dvec) + ((long long)b * H + h) * S;
+    float rv[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qq = q0 + 8 * i + 2 * t + j;
+        rv[2 * i + j] = qq < S ? rowv[qq] * (w == 0 ? kLog2e : 1.f) : 0.f;
+      }
+    ring_product<DP>(x, res, ring, bars, w, first + w * C, phase);
+    if (w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + 8 * i + 2 * t + (e & 1), kpos = e < 2 ? kr0 : kr1;
+          const bool ok = full || visible(qpos, kpos, S, causal, window);
+          x[4 * i + e] = ok ? ex2(x[4 * i + e] * scale_l2e - rv[2 * i + (e & 1)]) : 0.f;
+        }
+      put_p(pbuf, bars, x, tile);
+    } else {
+      mbar_wait(&bars->pfull, tile & 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[i] = pbuf[128 * i + threadIdx.x % 128] * (x[i] - rv[2 * (i / 4) + (i & 1)]);
+      mbar_arrive(&bars->pempty);
+    }
+    to_frags(x, fh, fl);
+    frag_product<DP>(acc, fh, fl, ring, bars, w, first + (2 + w) * C, phase);
+  }
+
+  const long long rstride = (long long)Hkv * D, base = (long long)b * S * rstride + hk * D;
+  store_acc<DP>(acc, w == 0 ? dv : dk, bf16, base, rstride, kr0, S, D, w == 0 ? 1.f : scale);
+}
+
+// dQ of one 64-query tile of one (batch row, q head): the block loops over
+// the key tiles its queries see.  Consumer warpgroup 0: S = Q K^T, P
+// (handed to warpgroup 1); warpgroup 1: dP = dO V^T, dS = P (dP - Dvec),
+// dQ += dS K.  Ring items of a key tile: K (rows), V (rows), K
+// (transposed), C chunks each.
+template <int DP>
+__global__ void __launch_bounds__(BwdTile<DP>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                          const void* __restrict__ v, const void* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dvec,
+                          void* __restrict__ dq, int B, int S, int H, int Hkv, int D, Strides qs,
+                          Strides ks, Strides vs, Strides dos, float scale, int causal,
+                          int window, int bf16) {
+  using Tl = BwdTile<DP>;
+  constexpr int C = Tl::C;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(bwd_smem);
+  Bars* bars = init_bars(smem + Tl::BAR_WORDS);
+  // block -> (query tile, head, batch row), heads fastest; causal: the
+  // longest query tiles (the most key tiles) first
+  const int nqt = (S + kTile - 1) / kTile;
+  const int hb = blockIdx.x % (H * B), qt_rev = blockIdx.x / (H * B);
+  const int h = hb % H, b = hb / H, hk = h / (H / Hkv);
+  const int q0 = (causal ? nqt - 1 - qt_rev : qt_rev) * kTile;
+  const int kv_hi = causal ? min(S, q0 + kTile) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int nt = (kv_hi - kv_lo + kTile - 1) / kTile, n_ring = nt * 3 * C;
+
+  if (threadIdx.x < 256) {   // the stagers
+    setmaxnreg_dec<Tl::STAGE_REGS>();
+    auto run = [&](auto zero) {
+      using E = decltype(zero);
+      const E* qp = static_cast<const E*>(q) + b * qs.b + h * qs.h;
+      const E* dp = static_cast<const E*>(dout) + b * dos.b + h * dos.h;
+      const E* kp = static_cast<const E*>(k) + b * ks.b + hk * ks.h;
+      const E* vp = static_cast<const E*>(v) + b * vs.b + hk * vs.h;
+      auto item = [&](int i) {
+        if (i < 2 * C) {
+          const int ch = i % C;
+          return i < C ? Chunk<E>{qp + kCh * ch, qs.s, q0, D - kCh * ch, false, 0, -1}
+                       : Chunk<E>{dp + kCh * ch, dos.s, q0, D - kCh * ch, false, 1, -1};
+        }
+        // K rows (to 0), V rows (1), K transposed (1)
+        const int r = i - 2 * C, j = r / (3 * C), kind = (r / C) % 3, ch = r % C;
+        const int k0 = kv_lo + j * kTile;
+        return kind == 1 ? Chunk<E>{vp + kCh * ch, vs.s, k0, D - kCh * ch, false, 1, kCh * ch}
+                         : Chunk<E>{kp + kCh * ch, ks.s, k0, D - kCh * ch, kind == 2, kind / 2,
+                                    -1};
+      };
+      stage<DP, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, D);
+    };
+    if (bf16) run(uint16_t{});
+    else run(0.f);
+    return;
+  }
+
+  setmaxnreg_inc<Tl::MUL_REGS>();
+  const int w = threadIdx.x / 128 - 2;   // consumer warpgroup
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, t = lane % 4;
+  const int qr0 = q0 + 16 * warp + lane / 4, qr1 = qr0 + 8;   // this thread's queries
+  const uint32_t* res = smem + w * C * kChunk;                 // Q (w = 0) or dO (w = 1)
+  float* pbuf = reinterpret_cast<float*>(smem + Tl::RES_WORDS);
+  const uint32_t* ring = smem + Tl::RES_WORDS + Tl::P_WORDS;
+  const float scale_l2e = scale * kLog2e;
+  // the logsumexp in base 2 (w = 0) or Dvec (w = 1) of this thread's rows
+  const float* rowv = (w == 0 ? lse : dvec) + ((long long)b * H + h) * S;
+  const float mul = w == 0 ? kLog2e : 1.f;
+  const float rv0 = qr0 < S ? rowv[qr0] * mul : 0.f, rv1 = qr1 < S ? rowv[qr1] * mul : 0.f;
+  float acc[DP / 2];   // dQ / scale (w = 1)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float x[32];         // S then P (w = 0); dP then dS (w = 1)
+  uint32_t fh[8][4], fl[8][4];
+  uint32_t phase = 0;  // this warpgroup's full-barrier phase of each ring slot
+
+  mbar_wait(&bars->res, 0);
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = kv_lo + j * kTile, first = j * 3 * C;
+    ring_product<DP>(x, res, ring, bars, w, first + w * C, phase);
+    if (w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * i + 2 * t + (e & 1), qpos = e < 2 ? qr0 : qr1;
+          const bool ok = full || visible(qpos, kpos, S, causal, window);
+          x[4 * i + e] = ok ? ex2(x[4 * i + e] * scale_l2e - (e < 2 ? rv0 : rv1)) : 0.f;
+        }
+      put_p(pbuf, bars, x, j);
+      continue;
+    }
+    mbar_wait(&bars->pfull, j & 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      x[i] = pbuf[128 * i + threadIdx.x % 128] * (x[i] - (i % 4 < 2 ? rv0 : rv1));
+    mbar_arrive(&bars->pempty);
+    to_frags(x, fh, fl);
+    frag_product<DP>(acc, fh, fl, ring, bars, w, first + 2 * C, phase);
+  }
+
+  if (w == 1) {
+    const long long rstride = (long long)H * D, base = (long long)b * S * rstride + h * D;
+    store_acc<DP>(acc, dq, bf16, base, rstride, qr0, S, D, scale);
+  }
+}
+
+template <int DP>
+int launch_wgmma(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B, int S,
+                 int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
+                 float scale, int causal, int window, cudaStream_t st) {
+  using Tl = BwdTile<DP>;
+  auto kv_kernel = flash_bwd_dkdv_wgmma_kernel<DP>;
+  auto q_kernel = flash_bwd_dq_wgmma_kernel<DP>;
+  cudaError_t err;
+  const void* kernels[2] = {reinterpret_cast<const void*>(kv_kernel),
+                            reinterpret_cast<const void*>(q_kernel)};
+  for (const void* kern : kernels) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    // the warpgroups' setmaxnreg counts assume this launch count: refuse
+    // rather than launch a block that would wait forever
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return (int)err;
+    if (attr.numRegs != Tl::LAUNCH_REGS) return (int)cudaErrorLaunchOutOfResources;
+  }
+  const int nt = (S + kTile - 1) / kTile;
+  kv_kernel<<<nt * Hkv * B, Tl::THREADS, Tl::SMEM, st>>>(q, k, v, dout, lse, dvec, dk, dv, B, S,
+                                                         H, Hkv, D, qs, ks, vs, dos, scale,
+                                                         causal, window, dtype == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  q_kernel<<<nt * H * B, Tl::THREADS, Tl::SMEM, st>>>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv,
+                                                      D, qs, ks, vs, dos, scale, causal, window,
+                                                      dtype == 1);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NDK>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, float* dvec, void* dq, void* dk,
-           void* dv, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
-           Strides vs, Strides dos, float scale, int causal, int window,
-           cudaStream_t st) {
+int launch_simt(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* dvec, void* dq, void* dk, void* dv, int B, int S, int H, int Hkv,
+                int D, Strides qs, Strides ks, Strides vs, Strides dos, float scale, int causal,
+                int window, cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const Strides os{(long long)S * H * D, (long long)H * D, D};   // out is contiguous
-  const long long rows = (long long)B * H * S;
-  row_dot_kernel<T><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0, st>>>(
-      static_cast<const T*>(out), dot, dvec, B, S, H, D, os, dos);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
   const size_t smem_kv = sizeof(float) * (size_t)(4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
-  err = cudaFuncSetAttribute(dkdv_kernel<T, NDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_kv);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_simt_kernel<T, NDK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<T, NDK><<<dim3((S + BK - 1) / BK, Hkv, B), kThreads, smem_kv, st>>>(
+  flash_bwd_dkdv_simt_kernel<T, NDK><<<dim3((S + BK - 1) / BK, Hkv, B), kThreads, smem_kv, st>>>(
       qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D,
       qs, ks, vs, dos, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem_q = sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-  err = cudaFuncSetAttribute(dq_kernel<T, NDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
+  err = cudaFuncSetAttribute(flash_bwd_dq_simt_kernel<T, NDK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<T, NDK><<<dim3((S + BQ - 1) / BQ, H, B), kThreads, smem_q, st>>>(
+  flash_bwd_dq_simt_kernel<T, NDK><<<dim3((S + BQ - 1) / BQ, H, B), kThreads, smem_q, st>>>(
       qt, kt, vt, dot, lse, dvec, static_cast<T*>(dq), S, H, Hkv, D, qs, ks, vs, dos,
       scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* out,
-             const void* dout, const float* lse, float* dvec, void* dq, void* dk,
-             void* dv, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
-             Strides vs, Strides dos, float scale, int causal, int window,
-             cudaStream_t st) {
+int dispatch_simt(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B,
+                  int S, int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
+                  float scale, int causal, int window, cudaStream_t st) {
   if (D <= 64)
-    return launch<T, 4>(q, k, v, out, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
+    return launch_simt<T, 4>(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
   if (D <= 96)
-    return launch<T, 6>(q, k, v, out, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
+    return launch_simt<T, 6>(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
   if (D <= 128)
-    return launch<T, 8>(q, k, v, out, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
+    return launch_simt<T, 8>(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dvec = rowsum(dO * O) into the (B, H, S) scratch, for either route
+template <typename T>
+int launch_row_dot(bool tc, const void* out, const void* dout, const void* v, float* dvec, int B,
+                   int S, int H, int Hkv, int D, Strides dos, Strides vs, cudaStream_t st) {
+  const Strides os{(long long)S * H * D, (long long)H * D, D};   // out is contiguous
+  const long long rows = (long long)B * H * S;
+  const unsigned grid = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
+  auto kernel = tc ? flash_bwd_row_dot_kernel<T, true> : flash_bwd_row_dot_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, st>>>(static_cast<const T*>(out), static_cast<const T*>(dout),
+                                    static_cast<const T*>(v), dvec, B, S, H, H / Hkv, D, os, dos,
+                                    vs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -413,17 +1142,39 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         const long long* ks, const long long* vs,
                         const long long* dos, float scale, int causal,
                         int window, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv || D <= 0 || D > 128 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides q3{qs[0], qs[1], qs[2]}, k3{ks[0], ks[1], ks[2]}, v3{vs[0], vs[1], vs[2]},
       d3{dos[0], dos[1], dos[2]};
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(dvec);
+  // the tensor-core route: head_dim a multiple of 8, and rows it can copy
+  // 4 elements at a time (16-byte fp32 or 8-byte bf16 runs: 4-element
+  // aligned bases and strides)
+  auto al = [&](const void* p, const Strides& s) {
+    return reinterpret_cast<uintptr_t>(p) % (dtype == 1 ? 8 : 16) == 0 && s.b % 4 == 0 &&
+           s.s % 4 == 0 && s.h % 4 == 0;
+  };
+  const bool tc = D % 8 == 0 && al(q, q3) && al(k, k3) && al(v, v3) && al(dout, d3);
+  int err = dtype == 0 ? launch_row_dot<float>(tc, out, dout, v, df, B, S, H, Hkv, D, d3, v3, st)
+                       : launch_row_dot<__nv_bfloat16>(tc, out, dout, v, df, B, S, H, Hkv, D, d3,
+                                                       v3, st);
+  if (err != 0) return err;
+  if (tc) {
+    // the tensor-core route, one instance per head_dim padded to DP
+    auto go = [&](auto launch_dp) {
+      return launch_dp(dtype, q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3,
+                       scale, causal, window, st);
+    };
+    if (D <= 32) return go(launch_wgmma<32>);
+    if (D <= 64) return go(launch_wgmma<64>);
+    if (D <= 96) return go(launch_wgmma<96>);
+    return go(launch_wgmma<128>);
+  }
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, st);
-  return (int)cudaErrorInvalidValue;
+    return dispatch_simt<float>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, st);
+  return dispatch_simt<__nv_bfloat16>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, st);
 }
 
 const char* flash_attention_bwd_error_string(int err) {

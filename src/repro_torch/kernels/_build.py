@@ -7,8 +7,10 @@ is compiled on first use into its own shared library:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The library is keyed by a hash of its source, so an edited kernel is rebuilt
-and an unchanged one is reused.  The build directory ``_build/`` sits in the
+The library is keyed by a hash of its source, of every header beside it
+(``csrc/*.cuh``, which a source includes with ``#include "<name>.cuh"``) and
+of the flags, so an edited kernel or header is rebuilt and an unchanged one
+is reused.  The build directory ``_build/`` sits in the
 package and is listed in ``.gitignore``.  :func:`build_all` starts one nvcc
 per source at once, so the wall time of a cold build is that of the slowest
 file.
@@ -85,9 +87,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

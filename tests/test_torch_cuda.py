@@ -203,7 +203,7 @@ def test_swiglu_kernel_deterministic(dev, T):
 
 from repro_torch.kernels import quant_transfer as qt  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.fused_swiglu import swiglu_bwd  # noqa: E402
 
 
@@ -259,13 +259,24 @@ def test_roundtrip_ef_card_equals_cpu(dev, fmt):
 
 
 BWD_CASES = [
-    # (B, S, H, Hkv, D, window, causal, dtype)
+    # (B, S, H, Hkv, D, window, causal, dtype); head_dim <= 128 and a
+    # multiple of 8 takes the tensor-core route, other head_dims the SIMT one
     (2, 256, 32, 32, 96, None, True, torch.float32),     # the slice's training shape
     (2, 192, 8, 2, 64, None, True, torch.float32),       # GQA, ragged S
     (1, 256, 4, 1, 128, 64, True, torch.float32),        # MQA + window
     (2, 130, 2, 2, 64, None, False, torch.float32),      # non-causal, ragged
     (1, 100, 4, 2, 32, 40, False, torch.float32),        # non-causal window
     (2, 160, 4, 2, 64, None, True, torch.bfloat16),
+    (2, 200, 8, 2, 32, None, True, torch.float32),       # head_dim 32, GQA 4
+    (1, 300, 8, 2, 96, None, True, torch.float32),       # head_dim 96, GQA 4, ragged
+    (1, 256, 16, 2, 128, None, True, torch.float32),     # Jamba's head_dim, GQA 8
+    (1, 200, 4, 2, 40, None, True, torch.float32),       # head_dim 40: padded to 64
+    (1, 190, 4, 4, 96, 70, False, torch.float32),        # non-causal window, head_dim 96
+    (3, 1, 8, 2, 64, None, True, torch.float32),         # S = 1
+    (2, 63, 8, 2, 96, None, True, torch.float32),        # both sides of a
+    (2, 65, 4, 4, 128, None, True, torch.float32),       # 64-row tile
+    (1, 150, 4, 2, 100, None, True, torch.float32),      # head_dim 100: the SIMT route
+    (2, 128, 4, 1, 96, 50, True, torch.bfloat16),        # bf16 on the tensor cores, window
 ]
 
 
@@ -287,6 +298,72 @@ def test_flash_bwd_kernel_matches_plain(dev, case):
     for name, a, b in zip("qkv", grads, ref_grads):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
                                    msg=lambda m, n=name: f"d{n}: {m}")
+
+
+def test_flash_bwd_kernel_unaligned_rows(dev):
+    """q/k/v/dO as views whose rows are not 4-element aligned (a stride of D
+    + 1): the tensor-core route copies rows 4 elements at a time, so these
+    take the SIMT kernels, and agree with the plain version all the same."""
+    rng = np.random.default_rng(24)
+    B, S, H, Hkv, D = 2, 150, 4, 2, 64
+
+    def view(heads, scale=0.5):
+        return _rand(rng, (B, S, heads, D + 1), dev, scale=scale)[..., 1:]
+
+    q, k, v = view(H), view(Hkv), view(Hkv)
+    dout = view(H, scale=1.0)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    want = ops.plain_flash_attention_bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+
+
+def test_flash_bwd_kernel_deterministic(dev):
+    """No atomics: two backward runs on the same inputs give the same bits."""
+    rng = np.random.default_rng(22)
+    q, k, v = (_rand(rng, (2, 256, 32, 96), dev) for _ in range(3))
+    dout = _rand(rng, (2, 256, 32, 96), dev, scale=1.0)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    a, b = (flash_attention_bwd(q, k, v, out, lse, dout) for _ in range(2))
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_flash_bwd_kernel_long_one_sign(dev):
+    """A causal case of 8192 rows, q/k uniform in [0, 1), dO and V in [1,
+    1.1): dV's sums over the queries of each key (and dK's, dQ's over keys)
+    have one sign and run over up to 128 tiles, where a sum that the tensor
+    core carried across tiles (it truncates its sums) would drift; and dP
+    and Dvec (~141 each) cancel in dS.  Held to the plain version and to the
+    float64 gradient (autograd), whose dV the plain fp32 sums over 8192
+    queries miss by more than 1e-4 absolute."""
+    rng = np.random.default_rng(23)
+    S, D = 8192, 128
+
+    def u(shape, lo=0.0, width=1.0):
+        return torch.from_numpy((lo + width * rng.random(shape)).astype(np.float32)).to(dev)
+
+    q, k, v = u((1, S, 2, D)), u((1, S, 1, D)), u((1, S, 1, D), 1.0, 0.1)
+    dout = u((1, S, 2, D), 1.0, 0.1)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    want = ops.plain_flash_attention_bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+    qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd.repeat_interleave(2, 2)) * D ** -0.5
+    keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vd.repeat_interleave(2, 2))
+    exact = torch.autograd.grad(o, (qd, kd, vd), dout.double())
+    for name, a, b in zip("qkv", got, exact):
+        torch.testing.assert_close(a.double(), b, atol=1e-4, rtol=0,
+                                   msg=lambda m, n=name: f"d{n} against float64: {m}")
 
 
 def test_flash_forward_lse_leaves_output_unchanged(dev):
