@@ -38,8 +38,11 @@ vocab 65536):
    rows with one-sign dO and V; times each beside its bound, its plain
    version and (attention) SDPA forward + backward;
 3c. holds the Mamba selective-scan kernel against its plain version at the
-   Jamba prefill's shape (2, 1024, 16384, 16) and at edges (d_state 8,
-   ragged d and S, S = 1, B = 1), timed beside its bound;
+   Jamba prefill's shape (2, 1024, 16384, 16), two runs bitwise equal, at
+   edges (d_state 8, ragged d and S, S = 1, B = 1, d not a multiple of 4)
+   and on a long-memory draw at that shape with the model's init decays
+   (also against float64 on 512 channels a row), timed beside its bound
+   (its device time in phase 9);
 3d. holds the serving kernels against their plain versions at Jamba's
    shapes (flash attention and decode at head_dim 128, GQA 8; SwiGLU at
    8192 x 24576, T = 8 and 2048, beside the cuBLAS route), timed;
@@ -92,9 +95,11 @@ vocab 65536):
 9. reads device times at the training shape from profiler traces (last,
    because tracing slows later launches): the flash forward beside SDPA's
    forward, the flash backward alone, and the port's forward with the
-   logsumexp plus its backward beside SDPA's forward plus backward; prints a ``{"kernels": [...]}`` line (all nine kernels, with their
-   launches on the phi3 serving, phi3 training, Jamba serving and rwkv6-7b
-   serving paths) and, last, ``{"ok": true, ...}``.
+   logsumexp plus its backward beside SDPA's forward plus backward; 9b
+   reads ``mamba_scan``'s device time at the Jamba prefill's shape; prints
+   a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
+   the phi3 serving, phi3 training, Jamba serving and rwkv6-7b serving
+   paths) and, last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -440,6 +445,22 @@ def phase_flash_device(torch, ops, F, dev, entries: dict) -> None:
           f"{sdpa_ms:.4f} ms")
     entries["flash_attention_bwd"].update(device_ms=bwd_ms, fwd_bwd_device_ms=port_ms,
                                           library_device_ms=sdpa_ms)
+
+
+def phase_scan_device(torch, ops, dev, entries: dict) -> None:
+    """``mamba_scan``'s device time at the Jamba prefill's shape from a
+    profiler trace, beside the CUDA-event time of phase 3c, into its entry.
+    Run last, as ``phase_flash_device``."""
+    from repro_torch.kernels.ref import MAMBA_EDGE_CASES, mamba_scan_inputs
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    (B, S, d, N), _ = MAMBA_EDGE_CASES[0]
+    inp = mamba_scan_inputs(lambda s: torch.randn(s, generator=g, device=dev), B, S, d, N)
+    dev_ms = device_ms(lambda: ops.mamba_scan_op(*inp), torch)
+    e = entries["mamba_scan"]
+    print(f"  mamba_scan ({B}, {S}, {d}, {N}) device time: {dev_ms:.4f} ms (CUDA events "
+          f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, {e['bound_ms'] / dev_ms:.1%} of it)")
+    e["device_ms"] = dev_ms
 
 
 def cublas_swiglu(F, x, wg, wu, wd):
@@ -821,8 +842,11 @@ def check_scan(got, want, what, tol=TOL_SCAN) -> float:
 
 
 def phase_mamba(torch, ops, F, dev) -> dict:
-    """The scan at the Jamba prefill's shape and at edges, then timed."""
-    from repro_torch.kernels.ref import MAMBA_EDGE_CASES, mamba_scan_inputs, naive_mamba_scan
+    """The scan at the Jamba prefill's shape, two runs bitwise equal, at
+    edges, and on the long-memory draw (also against float64), then timed."""
+    from repro_torch.kernels.ref import (MAMBA_EDGE_CASES, MAMBA_LONG_MEMORY_SHAPE,
+                                         mamba_long_memory_inputs, mamba_scan_inputs,
+                                         naive_mamba_scan)
 
     g = torch.Generator(device=dev).manual_seed(17)
 
@@ -831,12 +855,27 @@ def phase_mamba(torch, ops, F, dev) -> dict:
 
     (B, S, d, N), _ = MAMBA_EDGE_CASES[0]
     inp = mamba_scan_inputs(randn, B, S, d, N)
-    err = check_scan(ops.mamba_scan_op(*inp), naive_mamba_scan(*inp),
-                     f"mamba_scan ({B}, {S}, {d}, {N})")
+    got = ops.mamba_scan_op(*inp)
+    err = check_scan(got, naive_mamba_scan(*inp), f"mamba_scan ({B}, {S}, {d}, {N})")
+    same = bitwise_equal(torch, got, ops.mamba_scan_op(*inp))
+    print(f"  mamba_scan ({B}, {S}, {d}, {N}): two runs bitwise {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("mamba_scan: not deterministic")
+    del got
     for shape, what in MAMBA_EDGE_CASES[1:]:
         e_in = mamba_scan_inputs(randn, *shape)
         check_scan(ops.mamba_scan_op(*e_in), naive_mamba_scan(*e_in),
                    f"mamba_scan edge {shape} {what}")
+    # the model's init decays, memories of ~1000 steps, where an error of
+    # the kernel's ex2.approx decay compounds; float64 on 512 channels a row
+    lm = mamba_long_memory_inputs(randn, *MAMBA_LONG_MEMORY_SHAPE)
+    got = ops.mamba_scan_op(*lm)
+    what = f"mamba_scan long memory {MAMBA_LONG_MEMORY_SHAPE}"
+    check_scan(got, naive_mamba_scan(*lm), what)
+    k = 512
+    want64 = naive_mamba_scan(*(t[..., :k].double() for t in lm[:4]), lm[4][:k].double())
+    check_scan(got[..., :k].double(), want64, what + f", first {k} channels against float64")
+    del lm, got, want64
 
     ms = time_ms([lambda: ops.mamba_scan_op(*inp)], torch)
     plain_ms = time_ms([lambda: naive_mamba_scan(*inp)], torch)
@@ -1750,6 +1789,8 @@ def main() -> int:
     rwkv = phase_rwkv_serve(torch, ops, dev, card)
     print("phase 9: flash attention's device times at the training shape")
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
+    print("phase 9b: the Mamba scan's device time at the Jamba prefill's shape")
+    phase_scan_device(torch, ops, dev, {e["name"]: e for e in entries})
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}

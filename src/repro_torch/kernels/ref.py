@@ -10,6 +10,8 @@ paths), so they have no counterpart there.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -124,10 +126,11 @@ def naive_swiglu_act_bwd(g, u, dh, act: str = "silu"):
 
 def naive_mamba_scan(dt, b, c, x, a):
     """Step-by-step selective scan, from h = 0.  dt/x: (B, S, d); b/c:
-    (B, S, N); a: (d, N) = -exp(A_log); all float32.  Returns y (B, S, d)
-    with h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t and y_t = h_t . c_t."""
+    (B, S, N); a: (d, N) = -exp(A_log); all float32 (or all float64, for a
+    reference to the float32 versions).  Returns y (B, S, d) with
+    h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t and y_t = h_t . c_t."""
     B, S, d = dt.shape
-    h = torch.zeros((B, d, a.shape[1]), dtype=torch.float32, device=dt.device)
+    h = torch.zeros((B, d, a.shape[1]), dtype=dt.dtype, device=dt.device)
     ys = []
     for t in range(S):
         dt_t = dt[:, t]
@@ -142,11 +145,17 @@ def naive_mamba_scan(dt, b, c, x, a):
 MAMBA_EDGE_CASES = (
     ((2, 1024, 16384, 16), "the served Jamba prefill's shape"),
     ((2, 256, 512, 8), "d_state 8"),
-    ((2, 200, 1000, 16), "d not a multiple of the 128-channel block"),
+    ((2, 200, 1000, 16), "d not a multiple of the 64-channel block"),
     ((3, 1, 256, 16), "S = 1"),
-    ((2, 100, 384, 8), "S not a multiple of the 64-step tile"),
-    ((1, 130, 640, 16), "B = 1"),
+    ((2, 100, 384, 8), "S not a multiple of the 8-step tile at d_state 8"),
+    ((1, 130, 640, 16), "B = 1, a 2-step last tile"),
+    ((1, 77, 333, 8), "d not a multiple of 4 (4-byte copies), S odd"),
+    ((2, 45, 130, 16), "d not a multiple of 4 at d_state 16, 2 channels in the last block"),
 )
+
+#: (B, S, d, N) of the long-memory draw (:func:`mamba_long_memory_inputs`)
+#: that the scan kernel is held to on the card: the Jamba prefill's shape.
+MAMBA_LONG_MEMORY_SHAPE = (2, 1024, 16384, 16)
 
 
 def mamba_scan_inputs(randn, B, S, d, N):
@@ -157,6 +166,24 @@ def mamba_scan_inputs(randn, B, S, d, N):
     dt = F.softplus(0.5 * randn((B, S, d)))
     b, c, x = (0.5 * randn(s) for s in ((B, S, N), (B, S, N), (B, S, d)))
     return dt, b, c, x, -torch.exp(0.2 * randn((d, N)))
+
+
+def mamba_long_memory_inputs(randn, B, S, d, N):
+    """Scan inputs with the model's own init decays (``models/ssm.py``
+    ``init_mamba``): a = -(1 .. N) in every channel and dt = softplus(dt_bias
+    + 0.5 z), dt_bias the inverse softplus of a per-channel log-uniform draw
+    in [1e-3, 1e-1] and z ~ N(0, 1) per step (the input-dependent part), so
+    the slowest states decay by ~exp(-1e-3) a step and remember ~1000 steps.
+    x, b and c are 1 + 0.25 z: mostly one-sign, so h sums coherently over
+    that memory, |y| reaches several units, and an error of the decay that
+    compounds over the memory shows in y.  ``randn(shape)`` gives float32 N(0, 1)
+    tensors; the uniform draw is the normal CDF of such a draw."""
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.exp(lo + (hi - lo) * torch.special.ndtr(randn((d,))))
+    dt = F.softplus(torch.log(torch.expm1(u)) + 0.5 * randn((B, S, d)))
+    b, c, x = (1.0 + 0.25 * randn(s) for s in ((B, S, N), (B, S, N), (B, S, d)))
+    a = -torch.arange(1, N + 1, dtype=torch.float32, device=dt.device).expand(d, N)
+    return dt, b, c, x, a.contiguous()
 
 
 def naive_wkv6(r, k, v, w, u):

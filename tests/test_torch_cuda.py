@@ -512,6 +512,28 @@ def test_mamba_scan_kernel_matches_plain(dev, case):
     torch.testing.assert_close(out, want, atol=2e-4, rtol=2e-4)
 
 
+def test_mamba_scan_kernel_long_memory(dev):
+    """The model's init decays at the Jamba prefill's shape (memories of
+    ~1000 steps, over which the kernel's ex2.approx decays compound): 2e-4
+    abs + rel against the plain version, and against float64 on 256
+    channels."""
+    rng = np.random.default_rng(12)
+    inp = ref.mamba_long_memory_inputs(lambda s: _rand(rng, s, dev, scale=1.0),
+                                       *ref.MAMBA_LONG_MEMORY_SHAPE)
+    out = ops.mamba_scan_op(*inp)
+    torch.testing.assert_close(out, ref.naive_mamba_scan(*inp), atol=2e-4, rtol=2e-4)
+    k = 256
+    want = ref.naive_mamba_scan(*(t[..., :k].double() for t in inp[:4]), inp[4][:k].double())
+    torch.testing.assert_close(out[..., :k].double(), want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("case", [(2, 200, 1000, 16), (1, 77, 333, 8)])
+def test_mamba_scan_kernel_deterministic(dev, case):
+    inp = _mamba_inputs(np.random.default_rng(13), *case, dev)
+    a, b = ops.mamba_scan_op(*inp), ops.mamba_scan_op(*inp)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_mamba_scan_gradient_raises(dev):
     dt, b, c, x, a = _mamba_inputs(np.random.default_rng(10), 1, 8, 128, 16, dev)
     with pytest.raises(NotImplementedError, match="no backward kernel"):
