@@ -48,8 +48,12 @@ vocab 65536):
    8192 x 24576, T = 8 and 2048, beside the cuBLAS route), timed;
 3e. holds the RWKV-6 WKV kernel against its plain version at the rwkv6-7b
    prefill's shape (8, 64, 512, 64), on head views as the model hands them
-   over, and at the shared edge cases (S = 1, S off the staging run, d =
-   32, B = 1, decay logits above 0), timed beside its bound;
+   over, two runs bitwise equal, at the shared edge cases (S = 1, S off the
+   staging run, d = 32, B = 1, decay logits above 0), on a row whose logits
+   exceed 0 in one 64-step chunk only (the kernel's exact chunks and its
+   tensor-core chunks on one state) and on a long-memory draw at the
+   prefill's shape with the model's init decays (also against float64 on
+   16 rows), timed beside its bound (its device time in phase 9c);
 4. parity at full width and 2 layers: seeded weights on the card (kernels)
    and a CPU copy (plain versions), prefill and decode logits compared;
 5. serves at full width: one ``build_prefill_step`` call over 8 x 512
@@ -96,7 +100,9 @@ vocab 65536):
    because tracing slows later launches): the flash forward beside SDPA's
    forward, the flash backward alone, and the port's forward with the
    logsumexp plus its backward beside SDPA's forward plus backward; 9b
-   reads ``mamba_scan``'s device time at the Jamba prefill's shape; prints
+   reads ``mamba_scan``'s device time at the Jamba prefill's shape, 9c
+   ``rwkv6_wkv``'s at the rwkv6-7b prefill's and 9d ``flash_decode``'s at
+   phase 3's shape; prints
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
    the phi3 serving, phi3 training, Jamba serving and rwkv6-7b serving
    paths) and, last, ``{"ok": true, ...}``.
@@ -171,9 +177,11 @@ TOL_SCAN = 2e-4
 TOL_JAMBA_LAYER = 5e-5
 TOL_JAMBA_DECODE = 2e-4
 # RWKV-6 WKV, kernel vs plain on the card: |diff| <= TOL_WKV * (1 + |plain|);
-# the same recurrence with the bonus term summed apart and fused
-# multiply-adds.  13x the largest max abs error read on an H100 (3.8e-06, at
-# the prefill's shape; repro's own tolerance, 3e-4, is 80x it).
+# at d = 64 the chunked form in 3xTF32 on the tensor cores against the
+# step-by-step recurrence (at d = 32 the same recurrence with the bonus term
+# summed apart).  3.3x the largest max abs error read on an H100 (1.5e-05, at
+# the prefill's shape; 3.8e-06 for the step-by-step kernel it replaced;
+# repro's own tolerance, 3e-4, is 20x it).
 TOL_WKV = 5e-5
 # rwkv6-7b at full width, max |diff| / max |value|.  A layer card vs CPU
 # (8a): fp32 sums over 4096-14336 terms and the recurrence in other orders;
@@ -460,6 +468,40 @@ def phase_scan_device(torch, ops, dev, entries: dict) -> None:
     e = entries["mamba_scan"]
     print(f"  mamba_scan ({B}, {S}, {d}, {N}) device time: {dev_ms:.4f} ms (CUDA events "
           f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, {e['bound_ms'] / dev_ms:.1%} of it)")
+    e["device_ms"] = dev_ms
+
+
+def phase_wkv_device(torch, ops, dev, entries: dict) -> None:
+    """``rwkv6_wkv``'s device time at the rwkv6-7b prefill's shape from a
+    profiler trace, beside the CUDA-event time of phase 3e, into its entry.
+    Run last, as ``phase_flash_device``."""
+    from repro_torch.kernels.ref import WKV_EDGE_CASES, wkv6_inputs
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    (B, H, S, d), logit_max, _ = WKV_EDGE_CASES[0]
+    inp = wkv6_inputs(lambda s: torch.randn(s, generator=g, device=dev), B, H, S, d, logit_max)
+    dev_ms = device_ms(lambda: ops.rwkv6_wkv_op(*inp), torch)
+    e = entries["rwkv6_wkv"]
+    print(f"  rwkv6_wkv ({B}, {H}, {S}, {d}) device time: {dev_ms:.4f} ms (CUDA events "
+          f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, {e['bound_ms'] / dev_ms:.1%} of it)")
+    e["device_ms"] = dev_ms
+
+
+def phase_decode_device(torch, ops, dev, entries: dict) -> None:
+    """``flash_decode``'s device time at phase 3's shape (q (8, 32, 96),
+    cache (8, 256, 32, 96), the same mixed lengths) from a profiler trace,
+    beside its CUDA-event time, which at ~8 µs of bound reads the Python
+    launch path; into its entry.  Run last, as ``phase_flash_device``."""
+    B, H, S, D = 8, 32, 256, 96
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5)
+               for shape in ((B, H, D), (B, S, H, D), (B, S, H, D)))
+    lens = torch.tensor([256, 1, 17, 64, 128, 200, 255, 100], dtype=torch.int32, device=dev)
+    dev_ms = device_ms(lambda: ops.flash_decode_op(q, k, v, lens), torch)
+    e = entries["flash_decode"]
+    print(f"  flash_decode q ({B}, {H}, {D}) cache ({B}, {S}, {H}, {D}) device time: "
+          f"{dev_ms:.4f} ms (CUDA events {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
+          f"{e['bound_ms'] / dev_ms:.1%} of it)")
     e["device_ms"] = dev_ms
 
 
@@ -898,8 +940,13 @@ def phase_mamba(torch, ops, F, dev) -> dict:
 
 
 def phase_wkv(torch, ops, dev) -> dict:
-    """The WKV at the rwkv6-7b prefill's shape and at edges, then timed."""
-    from repro_torch.kernels.ref import WKV_EDGE_CASES, wkv6_inputs
+    """The WKV at the rwkv6-7b prefill's shape, two runs bitwise equal, at
+    edges, on a row whose logits exceed 0 in one chunk only (exact and
+    tensor-core chunks on one state), and on the long-memory draw at the
+    prefill's shape (also against float64 on 16 rows), then timed."""
+    from repro_torch.kernels.ref import (WKV_EDGE_CASES, WKV_HOT_CHUNK_CASE,
+                                         WKV_LONG_MEMORY_SHAPE, naive_wkv6, wkv6_hot_inputs,
+                                         wkv6_inputs, wkv6_long_memory_inputs)
 
     g = torch.Generator(device=dev).manual_seed(19)
 
@@ -910,18 +957,40 @@ def phase_wkv(torch, ops, dev) -> dict:
         e_in = wkv6_inputs(randn, *shape, logit_max)
         check_scan(ops.rwkv6_wkv_op(*e_in), ops.plain_rwkv6_wkv(*e_in),
                    f"rwkv6_wkv edge {shape} {what}", TOL_WKV)
+    shape, hot, logit_max = WKV_HOT_CHUNK_CASE
+    e_in = wkv6_hot_inputs(randn, *shape, hot, logit_max)
+    check_scan(ops.rwkv6_wkv_op(*e_in), ops.plain_rwkv6_wkv(*e_in),
+               f"rwkv6_wkv {shape}, logits up to {logit_max} at steps {hot[0]}..{hot[1] - 1} "
+               "only (exact and tensor-core chunks on one state)", TOL_WKV)
     (B, H, S, d), logit_max, what = WKV_EDGE_CASES[0]
     inp = wkv6_inputs(randn, B, H, S, d, logit_max)
-    err = check_scan(ops.rwkv6_wkv_op(*inp), ops.plain_rwkv6_wkv(*inp),
+    got = ops.rwkv6_wkv_op(*inp)
+    err = check_scan(got, ops.plain_rwkv6_wkv(*inp),
                      f"rwkv6_wkv ({B}, {H}, {S}, {d}) {what}, head views", TOL_WKV)
+    same = bitwise_equal(torch, got, ops.rwkv6_wkv_op(*inp))
+    print(f"  rwkv6_wkv ({B}, {H}, {S}, {d}): two runs bitwise {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("rwkv6_wkv: not deterministic")
+    del got
+    # the model's init decays (memories of 50-3000 steps) and one-sign r, k,
+    # v: |out| ~ 1e4, where the tensor core's truncated sums would compound;
+    # float64 on the first 16 (b, h) rows
+    lm = wkv6_long_memory_inputs(randn, *WKV_LONG_MEMORY_SHAPE)
+    got = ops.rwkv6_wkv_op(*lm)
+    what = f"rwkv6_wkv long memory {WKV_LONG_MEMORY_SHAPE}"
+    check_scan(got, ops.plain_rwkv6_wkv(*lm), what, TOL_WKV)
+    rows = 16
+    flat = [t.reshape(-1, *t.shape[2:])[:rows].double() for t in lm[:4]]
+    want64 = naive_wkv6(*flat, lm[4].repeat(lm[0].shape[0], 1)[:rows].double())
+    check_scan(got.reshape(-1, *got.shape[2:])[:rows].double(), want64,
+               what + f", first {rows} rows against float64", TOL_WKV)
+    del lm, got, flat, want64
 
     ms = time_ms([lambda: ops.rwkv6_wkv_op(*inp)], torch)
     plain_ms = time_ms([lambda: ops.plain_rwkv6_wkv(*inp)], torch)
-    nbytes = 4 * (5 * B * H * S * d + H * d)
-    bms, by = bound(nbytes, 4 * B * H * S * d * d)
+    bms, by = wkv_bound(B, H, S, d)
     print(f"  rwkv6_wkv: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-          f"({by}: bytes {bound(nbytes, 0)[0]:.4f}, fp32 "
-          f"{bound(0, 4 * B * H * S * d * d)[0]:.4f})")
+          f"({by}; the 3xTF32 products {bound(0, 0, tf32x3=8 * B * H * S * d * d)[0]:.4f})")
     del inp
     return {"name": "rwkv6_wkv", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
             "replaces": "src/repro/kernels/rwkv6_wkv.py:27",
@@ -929,6 +998,17 @@ def phase_wkv(torch, ops, dev) -> dict:
             "bound_by": by, "library_ms": None,
             "shape": f"r/k/v/w ({B},{H},{S},{d}) head views of ({B},{S},{H * d}), "
                      f"u ({H},{d}) fp32"}
+
+
+def wkv_bound(B, H, S, d):
+    """``rwkv6_wkv``'s least time: r, k, v, w read and out written once, u
+    read once; or, at d = 64, the chunked form's four 64^3 products per
+    (row, 64-step chunk) as 3xTF32 on the tensor cores (at d = 32 the
+    step-by-step form's ~4 d^2 fp32 operations a step)."""
+    nbytes = 4 * (5 * B * H * S * d + H * d)
+    if d == 64:
+        return bound(nbytes, 0, tf32x3=8 * B * H * -(-S // 64) * 64 * d * d)
+    return bound(nbytes, 4 * B * H * S * d * d)
 
 
 # ---------------------------------------------------------------------------
@@ -1791,6 +1871,10 @@ def main() -> int:
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 9b: the Mamba scan's device time at the Jamba prefill's shape")
     phase_scan_device(torch, ops, dev, {e["name"]: e for e in entries})
+    print("phase 9c: the RWKV-6 WKV's device time at the rwkv6-7b prefill's shape")
+    phase_wkv_device(torch, ops, dev, {e["name"]: e for e in entries})
+    print("phase 9d: flash_decode's device time at phase 3's shape")
+    phase_decode_device(torch, ops, dev, {e["name"]: e for e in entries})
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}

@@ -188,11 +188,13 @@ def mamba_long_memory_inputs(randn, B, S, d, N):
 
 def naive_wkv6(r, k, v, w, u):
     """Step-by-step WKV-6 recurrence from S = 0.  r/k/v/w: (BH, S, d) with w
-    the per-step decay; u: (BH, d).  Returns (BH, S, d) float32 with
+    the per-step decay; u: (BH, d).  Returns (BH, S, d) float32 (float64
+    for float64 inputs, a reference to the float32 versions) with
     out_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t) and S_t = diag(w_t) S_{t-1} + k_tᵀ v_t."""
-    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    dtype = torch.promote_types(r.dtype, torch.float32)
+    r, k, v, w, u = (t.to(dtype) for t in (r, k, v, w, u))
     BH, S, d = r.shape
-    s = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device)
+    s = torch.zeros((BH, d, d), dtype=dtype, device=r.device)
     outs = []
     for t in range(S):
         kv = k[:, t, :, None] * v[:, t, None, :]
@@ -226,6 +228,43 @@ def wkv6_inputs(randn, B, H, S, d, logit_max=0.0):
 
     r, k, v = (heads(0.5 * randn((B, S, H * d))) for _ in range(3))
     logit = -6.0 + (logit_max + 6.0) * torch.special.ndtr(randn((B, S, H * d)))
+    return r, k, v, heads(torch.exp(-torch.exp(logit))), 0.3 * randn((H, d))
+
+
+#: ((B, H, S, d), hot steps, largest logit there): logits above 0 in one
+#: 64-step chunk only, so that the WKV kernel's exact chunks and its
+#: tensor-core chunks follow each other on one state (:func:`wkv6_hot_inputs`)
+WKV_HOT_CHUNK_CASE = ((2, 4, 256, 64), (64, 128), 3.0)
+#: (B, H, S, d) of the long-memory draw (:func:`wkv6_long_memory_inputs`)
+#: that the WKV kernel is held to on the card: the rwkv6-7b prefill's shape
+WKV_LONG_MEMORY_SHAPE = (8, 64, 512, 64)
+
+
+def wkv6_hot_inputs(randn, B, H, S, d, hot, logit_max):
+    """:func:`wkv6_inputs` with the decay logit uniform in [-6, ``logit_max``]
+    at steps ``hot[0]`` .. ``hot[1] - 1`` and in [-6, 0] elsewhere."""
+    r, k, v, w, u = wkv6_inputs(randn, B, H, S, d)
+    logit = -6.0 + (logit_max + 6.0) * torch.special.ndtr(randn((B, H, S, d)))
+    t = torch.arange(S, device=w.device)[:, None]
+    hot_steps = (t >= hot[0]) & (t < hot[1])
+    return r, k, v, torch.where(hot_steps, torch.exp(-torch.exp(logit)), w), u
+
+
+def wkv6_long_memory_inputs(randn, B, H, S, d):
+    """WKV inputs with the model's own init decays (``models/rwkv.py``
+    ``init_rwkv_time_mix``): the logit is w0 + 0.5 z, w0 uniform in [-8, -4]
+    per (head, key) and z ~ N(0, 1) per step (the LoRA's part), so the decays
+    lie within ~e^-0.03 of 1 and a key remembers 50-3000 steps.  r, k and v
+    are 1 + 0.25 z: mostly one-sign, so the state sums coherently over that
+    memory, |out| reaches ~1e4, and an error that compounds over the memory
+    (the tensor core's truncated sums, a factor's rounding) shows.  Head views
+    of (B, S, H·d) as :func:`wkv6_inputs` gives them; u ~ N(0, 0.3^2)."""
+    def heads(t):
+        return t.view(B, S, H, d).transpose(1, 2)
+
+    r, k, v = (heads(1.0 + 0.25 * randn((B, S, H * d))) for _ in range(3))
+    w0 = -8.0 + 4.0 * torch.special.ndtr(randn((H * d,)))
+    logit = w0 + 0.5 * randn((B, S, H * d))
     return r, k, v, heads(torch.exp(-torch.exp(logit))), 0.3 * randn((H, d))
 
 

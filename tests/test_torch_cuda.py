@@ -589,10 +589,10 @@ def _wkv_inputs(rng, B, H, S, d, logit_max, dev):
 @pytest.mark.parametrize("case", ref.WKV_EDGE_CASES,
                          ids=[what for _, _, what in ref.WKV_EDGE_CASES])
 def test_rwkv6_wkv_kernel_matches_plain(dev, case):
-    """5e-5 abs + rel (chip_smoke.py's TOL_WKV, 13x the largest error read
-    on an H100; tests/test_kernels.py's 3e-4 for the Pallas kernel is 80x
-    it); head views of (B, S, H*d) projections, as the model hands them
-    over."""
+    """5e-5 abs + rel (chip_smoke.py's TOL_WKV, 3.3x the largest error read
+    on an H100 from the chunked 3xTF32 kernel; tests/test_kernels.py's 3e-4
+    for the Pallas kernel is 20x it); head views of (B, S, H*d)
+    projections, as the model hands them over."""
     shape, logit_max, _ = case
     inp = _wkv_inputs(np.random.default_rng(12), *shape, logit_max, dev)
     before = ops.LAUNCHES["rwkv6_wkv"]
@@ -601,6 +601,34 @@ def test_rwkv6_wkv_kernel_matches_plain(dev, case):
     want = ops.plain_rwkv6_wkv(*inp)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, atol=5e-5, rtol=5e-5)
+
+
+def test_rwkv6_wkv_hot_chunk_and_two_runs_bitwise(dev):
+    """Logits above 0 in one 64-step chunk only: the kernel runs that chunk
+    step by step and the others on the tensor cores, on one state; 5e-5 as
+    above.  Two runs give the same bits (no atomics)."""
+    shape, hot, logit_max = ref.WKV_HOT_CHUNK_CASE
+    rng = np.random.default_rng(15)
+    inp = ref.wkv6_hot_inputs(lambda s: _rand(rng, s, dev, scale=1.0), *shape, hot, logit_max)
+    out = ops.rwkv6_wkv_op(*inp)
+    torch.testing.assert_close(out, ops.plain_rwkv6_wkv(*inp), atol=5e-5, rtol=5e-5)
+    assert torch.equal(out, ops.rwkv6_wkv_op(*inp))
+
+
+def test_rwkv6_wkv_long_memory_against_float64(dev):
+    """The model's init decays and one-sign r, k, v (|out| ~ 1e4) at the
+    prefill's shape; 16 rows against the recurrence in float64, 5e-5 as
+    above (the tensor core truncates its sums, so an error that compounds
+    over the memory would show here)."""
+    rng = np.random.default_rng(16)
+    r, k, v, w, u = ref.wkv6_long_memory_inputs(lambda s: _rand(rng, s, dev, scale=1.0),
+                                                *ref.WKV_LONG_MEMORY_SHAPE)
+    out = ops.rwkv6_wkv_op(r, k, v, w, u)
+    B, H, S, d = r.shape
+    rows = [t.reshape(B * H, S, d)[:16].double() for t in (r, k, v, w)]
+    want = ref.naive_wkv6(*rows, u.repeat(B, 1)[:16].double())
+    torch.testing.assert_close(out.reshape(B * H, S, d)[:16].double(), want,
+                               atol=5e-5, rtol=5e-5)
 
 
 def test_rwkv6_wkv_contiguous_inputs_and_refusals(dev):
