@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths at the full width of
-``phi3-mini-3.8b`` (32 layers, d_model 3072, 32 heads x 96, d_ff 8192,
-vocab 32064, fp32, random weights from a seeded ``torch.Generator`` on the
-card), serves one 8-layer period of Jamba-1.5-Large without experts at
+Drives the port's serving, training and planned training paths at the
+full width of ``phi3-mini-3.8b`` (32 layers, d_model 3072, 32 heads x 96,
+d_ff 8192, vocab 32064, fp32, random weights from a seeded
+``torch.Generator`` on the card), serves one 8-layer period of Jamba-1.5-Large without experts at
 its published widths (d_model 8192, 64/8 heads x 128, d_ff 24576, Mamba
 d_inner 16384 and d_state 16, vocab 65536), and serves the published
 ``rwkv6-7b`` whole (32 layers, d_model 4096, 64 heads x 64, d_ff 14336,
@@ -71,6 +71,18 @@ vocab 65536):
    1 warm-up + 4 timed steps, every step's launch counts checked, the loss
    on step 0's batch lower after one step, peak memory, and a profiler
    table of one more step;
+6c. the paper's loop at full width, after 6b's state is freed: (a)
+   ``launch.profile`` measures phi3 at seq 256, batches 1, 2, 4, 8 into an
+   artifact of 4 virtual devices of 20 GB (``profiles/``), each layer's
+   forward and backward ms printed; (b) ``launch.train --plan --profile``
+   plans it with ``plan_hpp`` over the divisors of a model axis of 4,
+   lowers it and trains 4 steps (1 warm-up) of 8 x 256 on the planner's
+   period split, M = 4, int8 wire; (c) prints the split, the plan's
+   predicted round latency and summed device work beside the measured
+   ms/step, and the peak memory; (d) checks the launch counts of every step
+   and of one forward-only evaluation, M (P - 1) boundary round trips each
+   way; (e) holds a split with unequal stages, ((0, 1), (1, 4)), at 4
+   full-width layers card vs CPU (loss and every gradient leaf);
 7a. Jamba layer parity at full width, card vs CPU: a Mamba+MLP layer and
    the attention+MLP layer, ``apply_layer`` on (1, 256) tokens, then 8
    ``decode_layer`` steps from fresh states;
@@ -102,10 +114,10 @@ vocab 65536):
    logsumexp plus its backward beside SDPA's forward plus backward; 9b
    reads ``mamba_scan``'s device time at the Jamba prefill's shape, 9c
    ``rwkv6_wkv``'s at the rwkv6-7b prefill's and 9d ``flash_decode``'s at
-   phase 3's shape; prints
+   phase 3's and at Jamba's decode shape; prints
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
-   the phi3 serving, phi3 training, Jamba serving and rwkv6-7b serving
-   paths) and, last, ``{"ok": true, ...}``.
+   the phi3 serving, phi3 training, phi3 planned training, Jamba serving
+   and rwkv6-7b serving paths) and, last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -114,6 +126,7 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -234,21 +247,24 @@ def device_ms(fn, torch, n: int = 100) -> float:
     ``torch.profiler`` trace of ``n`` calls: the card's own time, which
     ``time_ms`` reads only when the card, not the host's launch path, is the
     slower of the two.  Tracing, once started, slows later launches: call
-    it after the timed phases."""
+    it after the timed phases.  A trace can come back without its kernels;
+    it is then taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("profiler trace holds no device time")
-    return us / 1e3 / n
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+        print(f"  profiler trace {attempt} holds no device time; tracing again")
+    raise AssertionError("three profiler traces held no device time")
 
 
 def max_err(a, b) -> float:
@@ -489,8 +505,9 @@ def phase_wkv_device(torch, ops, dev, entries: dict) -> None:
 
 def phase_decode_device(torch, ops, dev, entries: dict) -> None:
     """``flash_decode``'s device time at phase 3's shape (q (8, 32, 96),
-    cache (8, 256, 32, 96), the same mixed lengths) from a profiler trace,
-    beside its CUDA-event time, which at ~8 µs of bound reads the Python
+    cache (8, 256, 32, 96), the same mixed lengths) and at phase 3d's Jamba
+    shape (q (8, 64, 128), cache (8, 128, 8, 128)) from profiler traces,
+    beside its CUDA-event times, which at 1.5-8 µs of bound read the Python
     launch path; into its entry.  Run last, as ``phase_flash_device``."""
     B, H, S, D = 8, 32, 256, 96
     g = torch.Generator(device=dev).manual_seed(11)
@@ -503,6 +520,18 @@ def phase_decode_device(torch, ops, dev, entries: dict) -> None:
           f"{dev_ms:.4f} ms (CUDA events {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
           f"{e['bound_ms'] / dev_ms:.1%} of it)")
     e["device_ms"] = dev_ms
+
+    # Jamba's decode shape and lengths, as phase 3d times it
+    B, H, Hkv, S, D = 8, 64, 8, 128, 128
+    q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5)
+               for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    lens = torch.tensor([128, 1, 17, 64, 100, 127, 90, 33], dtype=torch.int32, device=dev)
+    dev_ms = device_ms(lambda: ops.flash_decode_op(q, k, v, lens), torch)
+    j = e["jamba"]
+    print(f"  flash_decode Jamba q ({B}, {H}, {D}) cache ({B}, {S}, {Hkv}, {D}) device time: "
+          f"{dev_ms:.4f} ms (CUDA events {j['ms']:.4f} ms, bound {j['bound_ms']:.4f} ms, "
+          f"{j['bound_ms'] / dev_ms:.1%} of it)")
+    j["device_ms"] = dev_ms
 
 
 def cublas_swiglu(F, x, wg, wu, wd):
@@ -1512,6 +1541,156 @@ def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6c: the paper's loop: profile -> plan -> lower -> train
+# ---------------------------------------------------------------------------
+
+
+def phase_plan_train(torch, ops, dev, card: str) -> dict:
+    """Full width: ``launch.profile`` measures phi3 into an artifact (4
+    virtual devices of 20 GB), ``launch.train --plan --profile`` plans it
+    (``plan_hpp``), lowers it and trains 4 steps (1 warm-up) on the
+    planner's period split, with the launch counts of every step and of one
+    forward-only evaluation held against what the plan implies; the plan's
+    prediction beside the measured step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import simulate
+    from repro_torch.launch import profile as profiler_cli
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("phi3-mini-3.8b")
+    L, M, B, S, steps, n_dev = cfg.n_layers, 4, 8, 256, 4, 4
+    out_dir = ROOT / "profiles"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "phase6c_profile.json")
+    print("phase 6c (a): profile full-width phi3 on the card")
+    t0 = time.perf_counter()
+    profiler_cli.main(["--arch", cfg.name, "--seq", str(S), "--batches", "1,2,4,8",
+                       "--replicate", str(n_dev), "--mem-gb", "20", "-o", path])
+    print(f"  profiled in {time.perf_counter() - t0:.1f}s; card {card}")
+    torch.cuda.empty_cache()
+
+    print("phase 6c (b): plan, lower and train through launch.train --plan --profile")
+    argv = ["--plan", "--profile", path, "--devices", str(n_dev), "--global-batch", str(B),
+            "--n-micro", str(M), "--seq", str(S), "--compress", "int8", "--bucket-mb", "256",
+            "--no-error-feedback", "--steps", str(steps), "--log-every", "1"]
+    marks, peaks, loss_after = [], [], {}
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES)))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        if step == 0:
+            loss_after[0] = float(ts.loss_fn(params, batch)[0])
+            marks.append(("eval", dict(ops.LAUNCHES)))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step)
+    launches = dict(ops.LAUNCHES)
+    plan, lowered, prof, ts = res["plan"], res["lowered"], res["profile"], res["ts"]
+    if prof.source != "measured":
+        raise AssertionError(f"the plan was made on the {prof.source} profile, not the "
+                             "measured artifact")
+    held = tree_leaves(res["params"]["periods"])[0].shape[0]
+    if ts.spec.stage_periods != lowered.stage_periods or held != cfg.n_periods:
+        raise AssertionError(f"the step runs the split {ts.spec.stage_periods} on {held} "
+                             f"periods; the plan lowered to {lowered.stage_periods} of "
+                             f"{cfg.n_periods}")
+
+    P = lowered.stage
+    hops, nb = M * (P - 1), len(ts.buckets)
+    per_step = {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
+                "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
+                "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
+                "mamba_scan": 0, "rwkv6_wkv": 0}
+    per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
+                "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
+                "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
+    prev = {k: 0 for k in launches}
+    for label, snap in marks:
+        delta = {k: snap[k] - prev[k] for k in snap}
+        want = per_eval if label == "eval" else per_step
+        print(f"  launches in {label}: {delta}")
+        if delta != want:
+            raise AssertionError(f"launch counts in {label} {delta} != {want}")
+        prev = snap
+    if prev != launches:
+        raise AssertionError("kernels launched outside the counted steps")
+    print(f"  boundary round trips: {hops} forward (the evaluation's quantize launches) and "
+          f"{hops} backward per step (M (P - 1) = {M} x {P - 1}), {nb} gradient buckets")
+
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(loss_after[0]):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if not loss_after[0] < losses[0]:
+        raise AssertionError("one step did not lower the loss on its own batch")
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    peak = max(peaks)
+    sim = simulate(plan, prof)
+    work_s = sum(sim.device_busy.values())
+    bounds = plan.memory_per_device(prof)
+    print(f"  plan: {P} stages, periods {lowered.stage_periods}, groups "
+          f"{lowered.device_groups}, alloc {lowered.micro_alloc}, K_p {lowered.warmup}; "
+          f"Eq. 3 bounds {[round(bounds[d] / 1e9, 3) for d in sorted(bounds)]} GB")
+    print(f"plan_train phi3-mini-3.8b full width fp32 from the measured profile: "
+          f"predicted round latency {plan.latency * 1e3:.1f} ms ({n_dev} devices in "
+          f"parallel), simulated {sim.makespan * 1e3:.1f} ms, summed device work "
+          f"{work_s * 1e3:.1f} ms (one card runs it in turn); measured {ms_step:.1f} ms/step "
+          f"over {res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.3f} GB; losses {[round(x, 6) for x in losses]}, "
+          f"{loss_after[0]:.6f} on step 0's batch after it; card {card}")
+    del res, ts, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gb": peak / 1e9,
+            "predicted_ms": plan.latency * 1e3, "work_ms": work_s * 1e3,
+            "stage_periods": lowered.stage_periods}
+
+
+def phase_split_parity(torch, dev) -> None:
+    """A planner split with unequal stages, ((0, 1), (1, 4)), at full width
+    and 4 layers, card vs CPU: the stack holds the 4 periods unpadded; one
+    uncompressed gradient (loss and every leaf) with phase 6a's tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lowering import LoweredPlan
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.runtime.train import build_train_step_from_lowered, init_train_state
+
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=4)
+    B, S, M = 2, 64, 2
+    lowered = LoweredPlan(arch=cfg.name, stage=2, n_micro=M, micro_batch=B // M,
+                          global_batch=B, n_periods=4, stage_periods=((0, 1), (1, 4)),
+                          stage_layers=((0, 2), (2, 6)), device_groups=((0,), (1,)),
+                          micro_alloc=((B // M,), (B // M,)), warmup=(3, 1))
+    batch_np = SyntheticLM(cfg.vocab_size, S).batch(0, B)
+    cpu = torch.device("cpu")
+    ts_card = build_train_step_from_lowered(cfg, 2, lowered, device=dev)
+    params, _ = init_train_state(2, ts_card)
+    held = tree_leaves(params["periods"])[0].shape[0]
+    if held != 4:
+        raise AssertionError(f"the split's period stack holds {held} periods, not 4")
+    params_cpu = tree_map(lambda t: t.to(cpu), params)
+    out = []
+    for device, p in ((dev, params), (cpu, params_cpu)):
+        ts = build_train_step_from_lowered(cfg, 2, lowered, device=device)
+        (loss, _), grads = ts.grad_fn(p, ts.shard_batch(batch_np))
+        out.append((loss.cpu(), [t.cpu() for t in tree_leaves(grads)]))
+        del grads
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    if not bool(torch.isfinite(l_card)) or not all(bool(torch.isfinite(g).all()) for g in g_card):
+        raise AssertionError("non-finite loss or gradient on the card")
+    check(_rel(torch, l_card, l_cpu), TOL_TRAIN_LOSS,
+          f"full-width 4-layer split {lowered.stage_periods} loss card vs CPU, relative")
+    check(max(_rel(torch, a, b) for a, b in zip(g_card, g_cpu)), TOL_GRAD_REL,
+          f"full-width 4-layer split gradients card vs CPU, {len(g_card)} leaves, worst relative")
+    del params, params_cpu, out, g_card, g_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: Jamba-1.5-Large without experts, one 8-layer period
 # ---------------------------------------------------------------------------
 
@@ -1861,6 +2040,11 @@ def main() -> int:
     phase_train_parity(torch, dev)
     print("phase 6b: train at full width")
     train = phase_train(torch, ops, dev, card)
+    gc.collect()                      # phase 6b's state is gone before 6c starts
+    torch.cuda.empty_cache()
+    plan_train = phase_plan_train(torch, ops, dev, card)
+    print("phase 6c (e): a planner split at full width, 4 layers, card vs CPU")
+    phase_split_parity(torch, dev)
     print("phase 7a: Jamba layers at full width, card vs CPU")
     phase_jamba_layers(torch, dev)
     jamba = phase_jamba_serve(torch, ops, dev, card)
@@ -1873,10 +2057,11 @@ def main() -> int:
     phase_scan_device(torch, ops, dev, {e["name"]: e for e in entries})
     print("phase 9c: the RWKV-6 WKV's device time at the rwkv6-7b prefill's shape")
     phase_wkv_device(torch, ops, dev, {e["name"]: e for e in entries})
-    print("phase 9d: flash_decode's device time at phase 3's shape")
+    print("phase 9d: flash_decode's device time at phase 3's and 3d's Jamba shapes")
     phase_decode_device(torch, ops, dev, {e["name"]: e for e in entries})
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
+                   "plan_train": plan_train["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")

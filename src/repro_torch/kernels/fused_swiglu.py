@@ -66,7 +66,9 @@ def swiglu_bwd(g, u, dh, act: str = "silu"):
 
 class FusedSwigluFn(torch.autograd.Function):
     """Forward: the fused kernel; backward: recomputed g, u (matmuls), the
-    ``swiglu_bwd`` kernel, then the gradient products (matmuls), in float32."""
+    ``swiglu_bwd`` kernel, then the gradient products (matmuls), in float32;
+    a weight that takes no gradient (the profiler's input-only backward)
+    skips its product."""
 
     @staticmethod
     def forward(ctx, x, wg, wu, wd, act):
@@ -82,5 +84,8 @@ class FusedSwigluFn(torch.autograd.Function):
         dg, du, h = swiglu_bwd(g, u, df @ wdf.T, ctx.act)
         del g, u
         dx = dg @ wgf.T + du @ wuf.T
-        return (dx.to(x.dtype), (xf.T @ dg).to(wg.dtype), (xf.T @ du).to(wu.dtype),
-                (h.T @ df).to(wd.dtype), None)
+        need = ctx.needs_input_grad
+        return (dx.to(x.dtype),
+                (xf.T @ dg).to(wg.dtype) if need[1] else None,
+                (xf.T @ du).to(wu.dtype) if need[2] else None,
+                (h.T @ df).to(wd.dtype) if need[3] else None, None)

@@ -139,6 +139,11 @@ class ModelConfig:
             n += d * self.d_ff + self.d_ff * d + d * d
         return n + 2 * d  # norms
 
+    def layer_active_param_count(self, spec: LayerSpec) -> int:
+        """Params touched per token: every param, since no MoE layer is
+        ported (``repro`` counts only the routed experts there)."""
+        return self.layer_param_count(spec)
+
     def param_count(self) -> int:
         n = sum(self.layer_param_count(s) for s in self.pattern) * self.n_periods
         n += self.vocab_size * self.d_model  # embed

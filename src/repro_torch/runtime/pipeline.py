@@ -7,10 +7,15 @@ body (stacked periods) is sharded over a ``stage`` mesh axis and a
 the reverse pipeline.  Here the P stages are *virtual* and run in turn on
 the one card:
 
-* **Virtual stages.**  Stage p owns its uniform slice ``[p*k, (p+1)*k)`` of
-  the padded period stack, as ``prepare_params`` / :func:`pad_periods`
-  lay it out.  Micro-batch m passes stages
-  0 .. P-1.  Only the real (stage, micro-batch) pairs are computed, tick by
+* **Virtual stages.**  The period stack is kept unpadded, in model order,
+  and stage p owns its rows ``[i_p, j_p)``: a planner split
+  ``stage_periods``, or else the uniform split :func:`stage_ranges`.
+  ``repro`` pads the stack with zero periods instead, to a multiple of P
+  for the uniform split (``pad_periods``) and to P times the longest range
+  for a planner split (``arrange_periods``): the same function, since a
+  zero period is an identity whose gradient it masks, but on one card those
+  periods would hold parameters, gradients and AdamW moments for nothing.
+  Micro-batch m passes stages 0 .. P-1.  Only the real (stage, micro-batch) pairs are computed, tick by
   tick (``scan_ticks(P, M)`` ticks; at tick t stage p runs micro-batch
   t - p): the bubble ticks that the SPMD scan computes and masks are
   skipped; their outputs never reached ``outs`` and their aux was masked,
@@ -52,20 +57,6 @@ from repro_torch.models.norms import rmsnorm
 from repro_torch.optim import tree_leaves, tree_map
 
 
-def pad_periods(periods, n_periods: int, n_stages: int):
-    """Pad stacked period params with zero (identity) periods to a multiple
-    of n_stages.  Returns (padded_params, valid_mask (padded,) float32)."""
-    padded = -(-n_periods // n_stages) * n_stages
-    pad = padded - n_periods
-    device = tree_leaves(periods)[0].device
-    if pad == 0:
-        return periods, torch.ones((n_periods,), dtype=torch.float32, device=device)
-    padded_params = tree_map(
-        lambda x: torch.cat([x, x.new_zeros((pad, *x.shape[1:]))], dim=0), periods)
-    mask = torch.cat([torch.ones(n_periods), torch.zeros(pad)]).to(device)
-    return padded_params, mask
-
-
 # ---------------------------------------------------------------------------
 # Stage body and the compressed boundary
 # ---------------------------------------------------------------------------
@@ -73,8 +64,7 @@ def pad_periods(periods, n_periods: int, n_stages: int):
 
 def _stage_fn(period_params, x, positions, cfg: ModelConfig, remat: bool):
     """Apply one stage's periods in order (``period_params``: one tree per
-    period).  Padded periods are zero, i.e. identity, layers; the ported
-    layer kinds carry no aux loss, so there is none to mask."""
+    period).  The ported layer kinds carry no aux loss."""
     for pp in period_params:
         x = apply_period_remat(tree_map(_leaf_per_use, pp), x, positions, cfg, remat)
     return x
@@ -112,19 +102,27 @@ class CompressedBoundary(torch.autograd.Function):
         return roundtrip(g, fmt=ctx.fmt, tile=ctx.tile), None, None
 
 
+def stage_ranges(n_periods: int, n_stages: int):
+    """The uniform split: stage p owns the real periods of ``repro``'s slice
+    ``[p*k, (p+1)*k)``, k = ceil(n_periods / n_stages), of the stack padded
+    to a multiple of ``n_stages``.  Where the periods do not divide, the last
+    ranges are shorter, and may be empty (an identity stage, as an all-zero
+    slice is in ``repro``)."""
+    k = -(-n_periods // n_stages)
+    return tuple((min(p * k, n_periods), min((p + 1) * k, n_periods))
+                 for p in range(n_stages))
+
+
 def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
-                   n_stages: int, remat: bool = True, compress: str = "none",
+                   ranges, remat: bool = True, compress: str = "none",
                    quant_tile: int = 256):
     """Run M micro-batches through P virtual stages (synchronous pipeline).
 
-    period_params: list of per-period param trees, ``P * k`` long (stage p
-    owns ``[p*k, (p+1)*k)``); x_micro: (M, mb, S, D).  Returns
-    outs (M, mb, S, D).
+    period_params: list of per-period param trees; stage p owns the rows
+    ``ranges[p]`` = ``[i_p, j_p)``.  x_micro: (M, mb, S, D).  Returns outs
+    (M, mb, S, D).
     """
-    M, P = x_micro.shape[0], n_stages
-    k = len(period_params) // P
-    if k * P != len(period_params):
-        raise ValueError(f"{len(period_params)} periods do not split into {P} stages")
+    M, P = x_micro.shape[0], len(ranges)
     if compress != "none" and P > 1:
         def boundary(x):
             return CompressedBoundary.apply(x, compress, quant_tile)
@@ -140,7 +138,8 @@ def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
             if not 0 <= m < M:
                 continue                         # bubble tick: nothing to compute
             inp = x_micro[m] if p == 0 else inflight.pop(m)
-            out = _stage_fn(period_params[p * k:(p + 1) * k], inp, positions, cfg, remat)
+            i, j = ranges[p]
+            out = _stage_fn(period_params[i:j], inp, positions, cfg, remat)
             if p < P - 1:
                 inflight[m] = boundary(out)
             else:
@@ -162,6 +161,9 @@ class TrainSpec:
     plan: MeshPlan
     n_micro: int
     remat: bool = True
+    # per-stage period ranges [i, j) of the unpadded stack (None = the
+    # uniform split, ``stage_ranges``)
+    stage_periods: tuple[tuple[int, int], ...] | None = None
     ce_chunk: int = 1024
     # compressed transfers: "none" | "int8" | "fp8" (boundaries and gradient buckets)
     compress: str = "none"
@@ -170,6 +172,11 @@ class TrainSpec:
     bucket_mb: float | None = None
     # carry the per-bucket quantization residual across steps
     error_feedback: bool = True
+
+    @property
+    def ranges(self) -> tuple:
+        """Each stage's rows of the period stack."""
+        return self.stage_periods or stage_ranges(self.cfg.n_periods, self.plan.stage)
 
     @property
     def bucketed(self) -> bool:
@@ -189,11 +196,11 @@ def period_list(periods) -> list:
 def spmd_loss_fn(spec: TrainSpec):
     """Returns ``f(params, batch) -> (loss, metrics)`` on one card.
 
-    params: the prepared tree (periods padded for the stage split;
-    ``periods`` may also be a list of per-period trees).  batch:
-    ``{"tokens": (B, S)}`` on the params' device.
+    params: the model's tree (``periods`` stacked in model order, or a list
+    of per-period trees).  batch: ``{"tokens": (B, S)}`` on the params'
+    device.
     """
-    cfg, plan, M = spec.cfg, spec.plan, spec.n_micro
+    cfg, M = spec.cfg, spec.n_micro
 
     def fn(params, batch):
         if "prefix" in batch:
@@ -207,7 +214,7 @@ def spmd_loss_fn(spec: TrainSpec):
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(mb, S)
         periods = period_list(params["periods"])
         outs = pipeline_apply(periods, x.reshape(M, mb, S, cfg.d_model), positions,
-                              cfg, plan.stage, spec.remat, spec.compress, spec.quant_tile)
+                              cfg, spec.ranges, spec.remat, spec.compress, spec.quant_tile)
         h = rmsnorm(params["final_norm"], outs.reshape(B, S, cfg.d_model),
                     cfg.norm_eps, cfg.zero_centered_norm)
         tgt = tokens[:, 1:]

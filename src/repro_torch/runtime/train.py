@@ -1,7 +1,9 @@
 """The train step on one card (the counterpart of ``repro.runtime.train``).
 
-``build_train_step`` wires the pieces: parameters prepared for the stage
-split (periods padded to a multiple of the stage count), the virtual-stage pipeline loss
+``build_train_step`` wires the pieces: the parameters (the period stack
+unpadded, in model order, each stage owning a range of it: the uniform
+split, or a planner split from ``build_train_step_from_lowered``), the
+virtual-stage pipeline loss
 (:func:`repro_torch.runtime.pipeline.spmd_loss_fn`), its gradient by
 autograd, the bucketed / compressed gradient path, and the optimizer
 update.  ``repro`` builds the same over a device mesh with ``shard_map``;
@@ -51,19 +53,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_model
 from repro_torch.optim import AdamW, tree_leaves, tree_map
 
-from .pipeline import TrainSpec, pad_periods, spmd_loss_fn
+from .pipeline import TrainSpec, spmd_loss_fn
 
 MESH_AXES = ("pod", "data", "stage", "tp")
-
-
-def prepare_params(gen: torch.Generator, cfg: ModelConfig, plan: MeshPlan,
-                   device="cuda"):
-    """Init (``gen`` lives on ``device``) plus the structural layout of the
-    stage split: periods padded to a multiple of the stage count.  At tp = 1
-    the vocabulary needs no padding."""
-    params = init_model(gen, cfg, device)
-    params["periods"], _ = pad_periods(params["periods"], cfg.n_periods, plan.stage)
-    return params
 
 
 def default_n_micro(cfg: ModelConfig, plan: MeshPlan, global_batch: int) -> int:
@@ -244,11 +236,9 @@ def build_train_step(cfg: ModelConfig, global_batch: int, *, stage: int | None =
                      bucket_mb: float | None = None, error_feedback: bool = True,
                      device="cuda") -> TrainStep:
     """The one-card train step for ``stage`` virtual stages (default: the
-    stage count ``repro`` would pick on one device, i.e. 1)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card: pass device='cpu' to train with the "
-                           "plain versions on the CPU")
+    stage count ``repro`` would pick on one device, i.e. 1), each owning its
+    range of the uniform split ``pipeline.stage_ranges``."""
+    device = _check_device(device)
     if stage is None:
         n_heads = cfg.attn.n_heads
         stage = pick_stage_count(cfg.n_layers, len(cfg.pattern), 1, n_heads)
@@ -262,6 +252,89 @@ def build_train_step(cfg: ModelConfig, global_batch: int, *, stage: int | None =
                      ce_chunk=ce_chunk,
                      compress=_check_compress(compress), quant_tile=int(quant_tile),
                      bucket_mb=bucket_mb, error_feedback=bool(error_feedback))
+    return _assemble_train_step(spec, optimizer, device)
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to train with the "
+                           "plain versions on the CPU")
+    return device
+
+
+def _check_stage_periods(stage_periods, plan: MeshPlan, cfg: ModelConfig):
+    stage_periods = tuple(tuple(r) for r in stage_periods)
+    if len(stage_periods) != plan.stage:
+        raise ValueError(f"stage_periods {stage_periods} has "
+                         f"{len(stage_periods)} ranges for {plan.stage} stages")
+    prev = 0
+    for i, j in stage_periods:
+        if i != prev or j <= i:
+            raise ValueError(f"stage_periods {stage_periods} must be "
+                             f"contiguous non-empty ranges from 0")
+        prev = j
+    if prev != cfg.n_periods:
+        raise ValueError(f"stage_periods {stage_periods} covers "
+                         f"[0, {prev}) but the model has "
+                         f"{cfg.n_periods} periods")
+    return stage_periods
+
+
+def _check_shard_alloc(shard_alloc) -> None:
+    if len(set(shard_alloc)) > 1:
+        raise NotImplementedError(
+            f"heterogeneous per-shard allocation {shard_alloc}: padded data "
+            "shards need real data parallelism, a later slice of the port")
+
+
+def train_spec_from_lowered(cfg: ModelConfig, model_axis: int, lowered, *,
+                            remat: bool = True, ce_chunk: int = 1024,
+                            compress: str = "none", quant_tile: int = 256,
+                            bucket_mb: float | None = None,
+                            error_feedback: bool = True) -> TrainSpec:
+    """Derive the static step configuration from a ``core.lowering``
+    ``LoweredPlan`` (duck-typed: ``stage``/``n_micro``/``stage_periods``/
+    ``global_batch``/``micro_alloc`` attributes) for a virtual model axis
+    of ``model_axis`` devices on one card (data axis 1).
+
+    tp = model_axis / stage is a label here: the math is unsharded.  So with
+    a compressed wire and tp > 1 the gradient buckets pack whole leaves,
+    where ``repro`` packs each tp shard's part; the quantization tiles fall
+    differently, and the port is held to ``repro`` within the int8
+    tolerance there, not bit for bit.  A plan's per-device allocation
+    collapses onto the one data shard (``lower_micro_alloc``), so it is
+    always uniform."""
+    if model_axis % lowered.stage:
+        raise ValueError(f"stage count {lowered.stage} does not divide the "
+                         f"model axis {model_axis}")
+    plan = mesh_plan(lowered.stage, model_axis)
+    if getattr(lowered, "micro_alloc", None):
+        from repro_torch.core.lowering import lower_micro_alloc
+        _check_shard_alloc(lower_micro_alloc(lowered, plan.dp_shards))
+    if lowered.global_batch % (plan.dp_shards * lowered.n_micro):
+        raise ValueError(
+            f"global batch {lowered.global_batch} not divisible into "
+            f"{lowered.n_micro} micro-batches per {plan.dp_shards} data shards")
+    stage_periods = _check_stage_periods(lowered.stage_periods, plan, cfg)
+    return TrainSpec(cfg=cfg, plan=plan, n_micro=lowered.n_micro, remat=remat,
+                     ce_chunk=ce_chunk, stage_periods=stage_periods,
+                     compress=_check_compress(compress), quant_tile=int(quant_tile),
+                     bucket_mb=bucket_mb, error_feedback=bool(error_feedback))
+
+
+def build_train_step_from_lowered(cfg: ModelConfig, model_axis: int, lowered, *,
+                                  optimizer: AdamW | None = None, device="cuda",
+                                  **spec_kw) -> TrainStep:
+    """The one-card train step for a ``LoweredPlan``: its stages run the
+    periods of ``lowered.stage_periods`` from the unpadded stack."""
+    device = _check_device(device)
+    spec = train_spec_from_lowered(cfg, model_axis, lowered, **spec_kw)
+    return _assemble_train_step(spec, optimizer, device)
+
+
+def _assemble_train_step(spec: TrainSpec, optimizer: AdamW | None,
+                         device: torch.device) -> TrainStep:
     optimizer = optimizer or AdamW(lr=1e-3)
     spmd = spmd_loss_fn(spec)
 
@@ -282,7 +355,7 @@ def build_train_step(cfg: ModelConfig, global_batch: int, *, stage: int | None =
                          grad_fn=grad_fn)
 
     # the bucket partition depends only on the tree's structure and shapes
-    abstract = prepare_params(None, cfg, plan, device="meta")
+    abstract = init_model(None, spec.cfg, "meta")
     buckets = tuple(grad_buckets(abstract, spec.bucket_mb))
     use_ef = spec.compress != "none" and spec.error_feedback
 
@@ -308,5 +381,5 @@ def init_train_state(seed: int, ts: TrainStep, optimizer: AdamW | None = None):
     """Parameters (random, from ``seed``) and optimizer state on ``ts.device``."""
     optimizer = optimizer or AdamW(lr=1e-3)
     gen = torch.Generator(device=ts.device).manual_seed(seed)
-    params = prepare_params(gen, ts.spec.cfg, ts.spec.plan, ts.device)
+    params = init_model(gen, ts.spec.cfg, ts.device)
     return params, optimizer.init(params)
