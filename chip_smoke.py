@@ -20,6 +20,9 @@ vocab 65536):
    at the shapes the serving path gives it and at GQA / window / softcap / ragged /
    bf16 edge cases, and times kernel, plain version and (where one PyTorch
    call computes the same function) that library call with CUDA events;
+   flash decode also at two long caches at batch 1 (phi3-mini's 4096-token
+   context, a 32768-key slice of Jamba's; fp32 and bf16), where the split
+   over a thread-block cluster runs, and with more splits than valid keys;
    flash attention at the prefill and at the training micro-batch
    (2, 256) beside SDPA and its 3xTF32 bound, two runs bitwise equal, S =
    1, 63 and 65, head_dim 160 (the SIMT route), and a causal row of 16384
@@ -114,7 +117,9 @@ vocab 65536):
    logsumexp plus its backward beside SDPA's forward plus backward; 9b
    reads ``mamba_scan``'s device time at the Jamba prefill's shape, 9c
    ``rwkv6_wkv``'s at the rwkv6-7b prefill's and 9d ``flash_decode``'s at
-   phase 3's and at Jamba's decode shape; prints
+   the four ``DECODE_SHAPES`` beside SDPA's (and, at GQA shapes, the heads'
+   ``repeat_interleave``'s) device time, each over input sets called in
+   turn until their caches span 4x the L2 (so they come from HBM); prints
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
    the phi3 serving, phi3 training, phi3 planned training, Jamba serving
    and rwkv6-7b serving paths) and, last, ``{"ok": true, ...}``.
@@ -127,6 +132,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -146,6 +152,8 @@ PEAK_TF32_FLOPS = 495e12
 # exponentials per second on the special-function units (132 SMs x 16 per
 # clock at the 1.98 GHz boost clock): the scan's operation bound
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
+# the card's L2 (data sheet): timed inputs that must come from HBM span 4x it
+L2_BYTES = 50 * 2 ** 20
 
 # fp32: kernel and plain version sum in different orders (TF32 off), so they
 # agree to fp32 rounding of sums over head_dim, keys, d_model and d_ff.
@@ -248,7 +256,10 @@ def device_ms(fn, torch, n: int = 100) -> float:
     ``time_ms`` reads only when the card, not the host's launch path, is the
     slower of the two.  Tracing, once started, slows later launches: call
     it after the timed phases.  A trace can come back without its kernels;
-    it is then taken again, up to three times."""
+    it is then taken again, up to three times.  A trace can also keep only
+    some of them: each kernel's launches a call are its records over ``n``,
+    rounded, and its mean over the records kept counts that many times (a
+    shortfall is printed)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -259,10 +270,18 @@ def device_ms(fn, torch, n: int = 100) -> float:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / n
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count > 0]
+        if sum(e.self_device_time_total for e in kernels) > 0:
+            us, lost = 0.0, 0
+            for e in kernels:
+                per_call = max(1, round(e.count / n))
+                lost += max(0, per_call * n - e.count)
+                us += e.self_device_time_total / e.count * per_call
+            if lost:
+                print(f"  profiler trace kept {sum(e.count for e in kernels)} kernel records "
+                      f"of {sum(e.count for e in kernels) + lost} ({n} calls)")
+            return us / 1e3
         print(f"  profiler trace {attempt} holds no device time; tracing again")
     raise AssertionError("three profiler traces held no device time")
 
@@ -297,6 +316,64 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+# flash_decode's timed shapes, fp32: phi3's and Jamba's serving steps (the
+# lengths phases 3 and 3d have always used), phi3-mini-4k's full context
+# (arXiv:2404.14219) and a 32K slice of Jamba-1.5's context at batch 1:
+# name -> (B, H, Hkv, S, D, per-row lengths)
+DECODE_SHAPES = {
+    "phi3": (8, 32, 32, 256, 96, (256, 1, 17, 64, 128, 200, 255, 100)),
+    "jamba": (8, 64, 8, 128, 128, (128, 1, 17, 64, 100, 127, 90, 33)),
+    "phi3_long": (1, 32, 32, 4096, 96, (4096,)),
+    "jamba_long": (1, 64, 8, 32768, 128, (32768,)),
+}
+
+
+def decode_inputs(torch, dev, g, name, dtype=None):
+    """q, k, v, lens of ``DECODE_SHAPES[name]``, values N(0, 0.25) from ``g``."""
+    B, H, Hkv, S, D, lens = DECODE_SHAPES[name]
+    q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5).to(dtype or torch.float32)
+               for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def decode_sets(torch, dev, g, name):
+    """``decode_inputs`` sets of ``DECODE_SHAPES[name]`` (fp32), as many as
+    make their valid K and V rows span 4x the card's 50 MB L2 when called in
+    turn: a timed call then reads its cache from HBM, as a decode step does
+    (each layer's weights stream between its attention calls)."""
+    B, H, Hkv, S, D, lens = DECODE_SHAPES[name]
+    n = -(-4 * L2_BYTES // (2 * sum(lens) * Hkv * D * 4))
+    return [decode_inputs(torch, dev, g, name) for _ in range(n)]
+
+
+def in_turns(fns):
+    """One callable that calls ``fns`` in turn, one of them a call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def decode_bound(name, elem=4):
+    """``flash_decode``'s least time at ``DECODE_SHAPES[name]``: q read and
+    the output written once, each valid K and V row read once, the lengths;
+    or 4·D fp32 flops a (query head, valid key)."""
+    B, H, Hkv, S, D, lens = DECODE_SHAPES[name]
+    total = sum(lens)
+    return bound(elem * (2 * B * H * D + 2 * total * Hkv * D) + 4 * B, 4 * D * H * total)
+
+
+def sdpa_decode_args(torch, q, k, v, lens):
+    """SDPA's operands for a decode step: q as one query token, the caches'
+    heads repeated to q's (GQA) and moved before S, a mask where a row's
+    length is below S (none at full length)."""
+    G = q.shape[1] // k.shape[2]
+    kt, vt = ((t.repeat_interleave(G, dim=2) if G > 1 else t).transpose(1, 2) for t in (k, v))
+    S = k.shape[1]
+    mask = None
+    if bool((lens < S).any()):
+        mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    return q[:, :, None], kt, vt, mask
+
+
 def phase_decode(torch, ops, F, dev) -> dict:
     B, H, S, D = 8, 32, 256, 96
     g = torch.Generator(device=dev).manual_seed(11)
@@ -304,7 +381,7 @@ def phase_decode(torch, ops, F, dev) -> dict:
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).mul_(0.5).to(dtype)
 
-    lens = torch.tensor([256, 1, 17, 64, 128, 200, 255, 100], dtype=torch.int32, device=dev)
+    lens = torch.tensor(DECODE_SHAPES["phi3"][5], dtype=torch.int32, device=dev)
     sets = [(rnd(B, H, D), rnd(B, S, H, D), rnd(B, S, H, D)) for _ in range(3)]
     q, k, v = sets[0]
     err = max_err(ops.flash_decode_op(q, k, v, lens), ops.plain_flash_decode(q, k, v, lens))
@@ -329,20 +406,66 @@ def phase_decode(torch, ops, F, dev) -> dict:
     ms = time_ms([lambda s=s: ops.flash_decode_op(s[0], s[1], s[2], lens) for s in sets], torch)
     plain_ms = time_ms([lambda s=s: ops.plain_flash_decode(s[0], s[1], s[2], lens)
                         for s in sets], torch)
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    lib_ms = time_ms([lambda s=s: F.scaled_dot_product_attention(
-        s[0][:, :, None], s[1].transpose(1, 2), s[2].transpose(1, 2), attn_mask=mask)
-        for s in sets], torch)
-    total_len = int(lens.sum())
-    nbytes = 4 * (2 * B * H * D + 2 * total_len * H * D) + 4 * B
-    flops = 4 * D * H * total_len
-    bms, by = bound(nbytes, flops)
-    return {"name": "flash_decode", "route": "cuda",
-            "source": "src/repro_torch/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:22",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms,
-            "shape": f"q ({B},{H},{D}) cache ({B},{S},{H},{D}) lens sum {total_len} fp32"}
+    lib_ms = time_ms([lambda a=sdpa_decode_args(torch, *s, lens): F.scaled_dot_product_attention(
+        a[0], a[1], a[2], attn_mask=a[3]) for s in sets], torch)
+    bms, by = decode_bound("phi3")
+    entry = {"name": "flash_decode", "route": "cuda",
+             "source": "src/repro_torch/csrc/decode_attention.cu",
+             "replaces": "src/repro/kernels/decode_attention.py:22",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": by, "library_ms": lib_ms,
+             "shape": f"q ({B},{H},{D}) cache ({B},{S},{H},{D}) lens sum {int(lens.sum())} fp32"}
+
+    # long caches at batch 1: the split over a thread-block cluster
+    for name in ("phi3_long", "jamba_long"):
+        Bl, Hl, Hkvl, Sl, Dl, _ = DECODE_SHAPES[name]
+        q, k, v, ln = decode_inputs(torch, dev, g, name)
+        e = max_err(ops.flash_decode_op(q, k, v, ln), ops.plain_flash_decode(q, k, v, ln))
+        check(e, TOL_FP32, f"flash_decode {name} q ({Bl}, {Hl}, {Dl}) cache ({Bl}, {Sl}, "
+                           f"{Hkvl}, {Dl}) full length")
+        a = sdpa_decode_args(torch, q, k, v, ln)
+        lms = time_ms([lambda: ops.flash_decode_op(q, k, v, ln)], torch)
+        lplain = time_ms([lambda: ops.plain_flash_decode(q, k, v, ln)], torch)
+        llib = time_ms([lambda: F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                               attn_mask=a[3])], torch)
+        lb, lby = decode_bound(name)
+        entry[name] = {"max_abs_err": e, "ms": lms, "plain_ms": lplain, "bound_ms": lb,
+                       "bound_by": lby, "library_ms": llib,
+                       "shape": f"q ({Bl},{Hl},{Dl}) cache ({Bl},{Sl},{Hkvl},{Dl}) full fp32"}
+        print(f"  flash_decode {name}: kernel {lms:.4f} ms, plain {lplain:.4f} ms, SDPA "
+              f"{llib:.4f} ms (heads repeated outside the call), bound {lb:.4f} ms ({lby})")
+        del q, k, v, a
+    # the Jamba long cache in bf16.  Its outputs are means over 32768 keys
+    # (|out| about 0.003, at most about 0.011), far below TOL_BF16, so the
+    # limit follows their size: two bf16 steps (2^-7) of the largest plain
+    # output, plus 1e-6.  An output of zeros, or one that leaves out one
+    # split's keys (2048 of 32768), must miss it, or the check could not fail.
+    q, k, v, ln = decode_inputs(torch, dev, g, "jamba_long", torch.bfloat16)
+    want = ops.plain_flash_decode(q, k, v, ln)
+    tol = 2 ** -7 * float(want.float().abs().max()) + 1e-6
+    e = max_err(ops.flash_decode_op(q, k, v, ln), want)
+    check(e, tol, "flash_decode jamba_long bf16 full length (limit 2^-7 max |plain| + 1e-6)")
+    part = k.shape[1] // 16
+    for what, wrong in (("zeros", torch.zeros_like(want)),
+                        ("the last split left out", ops.plain_flash_decode(q, k, v, ln - part)),
+                        ("the first split left out",
+                         ops.plain_flash_decode(q, k, v, ln, window=k.shape[1] - part))):
+        miss = max_err(wrong, want)
+        print(f"  flash_decode jamba_long bf16: {what} would err by {miss:.3e} (limit {tol:.3e})")
+        if not miss > tol:
+            raise AssertionError(f"flash_decode jamba_long bf16: {what} passes the limit {tol}")
+    del q, k, v, want, wrong
+    # 16 splits over a 32768-key cache holding 5 and 40 valid keys (all
+    # but one or two splits empty)
+    q, k, v = rnd(2, 64, 128), rnd(2, 32768, 8, 128), rnd(2, 32768, 8, 128)
+    ln = torch.tensor([5, 40], dtype=torch.int32, device=dev)
+    for kw in ({}, {"window": 3}):
+        e = max_err(ops.flash_decode_op(q, k, v, ln, **kw), ops.plain_flash_decode(q, k, v, ln, **kw))
+        check(e, TOL_FP32, f"flash_decode splits past the valid keys: B=2 cache 32768, "
+                           f"lengths 5 and 40, {kw or 'no window'}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry
 
 
 def flash_bound(B, S, H, Hkv, D, causal=True):
@@ -503,35 +626,40 @@ def phase_wkv_device(torch, ops, dev, entries: dict) -> None:
     e["device_ms"] = dev_ms
 
 
-def phase_decode_device(torch, ops, dev, entries: dict) -> None:
-    """``flash_decode``'s device time at phase 3's shape (q (8, 32, 96),
-    cache (8, 256, 32, 96), the same mixed lengths) and at phase 3d's Jamba
-    shape (q (8, 64, 128), cache (8, 128, 8, 128)) from profiler traces,
-    beside its CUDA-event times, which at 1.5-8 µs of bound read the Python
-    launch path; into its entry.  Run last, as ``phase_flash_device``."""
-    B, H, S, D = 8, 32, 256, 96
+def phase_decode_device(torch, ops, F, dev, entries: dict) -> None:
+    """``flash_decode``'s device time at the four ``DECODE_SHAPES`` (phase 3's
+    phi3 step, phase 3d's Jamba step, the two long caches) from profiler
+    traces, beside its CUDA-event times (which at 1.5-8 µs of bound read the
+    Python launch path) and SDPA's device time by the same ``device_ms``:
+    the SDPA call alone, and at GQA shapes the ``repeat_interleave`` of the
+    caches to q's heads apart from it.  Into its entry.  Run last, as
+    ``phase_flash_device``."""
     g = torch.Generator(device=dev).manual_seed(11)
-    q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5)
-               for shape in ((B, H, D), (B, S, H, D), (B, S, H, D)))
-    lens = torch.tensor([256, 1, 17, 64, 128, 200, 255, 100], dtype=torch.int32, device=dev)
-    dev_ms = device_ms(lambda: ops.flash_decode_op(q, k, v, lens), torch)
     e = entries["flash_decode"]
-    print(f"  flash_decode q ({B}, {H}, {D}) cache ({B}, {S}, {H}, {D}) device time: "
-          f"{dev_ms:.4f} ms (CUDA events {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms, "
-          f"{e['bound_ms'] / dev_ms:.1%} of it)")
-    e["device_ms"] = dev_ms
-
-    # Jamba's decode shape and lengths, as phase 3d times it
-    B, H, Hkv, S, D = 8, 64, 8, 128, 128
-    q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5)
-               for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
-    lens = torch.tensor([128, 1, 17, 64, 100, 127, 90, 33], dtype=torch.int32, device=dev)
-    dev_ms = device_ms(lambda: ops.flash_decode_op(q, k, v, lens), torch)
-    j = e["jamba"]
-    print(f"  flash_decode Jamba q ({B}, {H}, {D}) cache ({B}, {S}, {Hkv}, {D}) device time: "
-          f"{dev_ms:.4f} ms (CUDA events {j['ms']:.4f} ms, bound {j['bound_ms']:.4f} ms, "
-          f"{j['bound_ms'] / dev_ms:.1%} of it)")
-    j["device_ms"] = dev_ms
+    subs = {"phi3": e, "jamba": e["jamba"], "phi3_long": e["phi3_long"],
+            "jamba_long": e["jamba_long"]}
+    for name, sub in subs.items():
+        B, H, Hkv, S, D, _ = DECODE_SHAPES[name]
+        sets = decode_sets(torch, dev, g, name)
+        dev_ms = device_ms(in_turns([lambda s=s: ops.flash_decode_op(*s) for s in sets]), torch)
+        args = [sdpa_decode_args(torch, *s) for s in sets]
+        sdpa_ms = device_ms(in_turns([lambda a=a: F.scaled_dot_product_attention(
+            a[0], a[1], a[2], attn_mask=a[3]) for a in args]), torch)
+        del args
+        rep_ms = None
+        if H != Hkv:
+            rep_ms = device_ms(in_turns([lambda s=s: (s[1].repeat_interleave(H // Hkv, dim=2),
+                                                      s[2].repeat_interleave(H // Hkv, dim=2))
+                                         for s in sets]), torch)
+        sub.update(device_ms=dev_ms, library_device_ms=sdpa_ms, repeat_device_ms=rep_ms,
+                   device_sets=len(sets))
+        print(f"  flash_decode {name} q ({B}, {H}, {D}) cache ({B}, {S}, {Hkv}, {D}) device "
+              f"time over {len(sets)} input sets in turn: {dev_ms:.4f} ms (CUDA events "
+              f"{sub['ms']:.4f} ms, bound {sub['bound_ms']:.4f} ms, "
+              f"{sub['bound_ms'] / dev_ms:.1%} of it); SDPA {sdpa_ms:.4f} ms"
+              + ("" if rep_ms is None else f" + the heads' repeat_interleave {rep_ms:.4f} ms"))
+        del sets
+    torch.cuda.empty_cache()
 
 
 def cublas_swiglu(F, x, wg, wu, wd):
@@ -1073,27 +1201,25 @@ def phase_jamba_kernels(torch, ops, F, dev, entries: dict) -> None:
           f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     del q, k, v, kt, vt
 
-    B, S = 8, 128
-    lens = torch.tensor([128, 1, 17, 64, 100, 127, 90, 33], dtype=torch.int32, device=dev)
+    B, H, Hkv, S, D, _ = DECODE_SHAPES["jamba"]
+    lens = torch.tensor(DECODE_SHAPES["jamba"][5], dtype=torch.int32, device=dev)
     q, k, v = rnd(B, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
     err = max_err(ops.flash_decode_op(q, k, v, lens), ops.plain_flash_decode(q, k, v, lens))
     check(err, TOL_FP32, f"flash_decode Jamba q ({B}, {H}, {D}) cache ({B}, {S}, {Hkv}, {D})")
-    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    a = sdpa_decode_args(torch, q, k, v, lens)
     ms = time_ms([lambda: ops.flash_decode_op(q, k, v, lens)], torch)
     plain_ms = time_ms([lambda: ops.plain_flash_decode(q, k, v, lens)], torch)
-    lib_ms = time_ms([lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
-                                                             attn_mask=mask)], torch)
+    lib_ms = time_ms([lambda: F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                             attn_mask=a[3])], torch)
     total_len = int(lens.sum())
-    bms, by = bound(4 * (2 * B * H * D + 2 * total_len * Hkv * D) + 4 * B,
-                    4 * D * H * total_len)
+    bms, by = decode_bound("jamba")
     entries["flash_decode"]["jamba"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": lib_ms,
         "shape": f"q ({B},{H},{D}) cache ({B},{S},{Hkv},{D}) lens sum {total_len} fp32"}
     print(f"  flash_decode Jamba: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    del q, k, v, kt, vt
+    del q, k, v, a
 
     Dm, Fd = 8192, 24576
     w = (rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Fd, Dm, scale=Fd ** -0.5))
@@ -2057,8 +2183,8 @@ def main() -> int:
     phase_scan_device(torch, ops, dev, {e["name"]: e for e in entries})
     print("phase 9c: the RWKV-6 WKV's device time at the rwkv6-7b prefill's shape")
     phase_wkv_device(torch, ops, dev, {e["name"]: e for e in entries})
-    print("phase 9d: flash_decode's device time at phase 3's and 3d's Jamba shapes")
-    phase_decode_device(torch, ops, dev, {e["name"]: e for e in entries})
+    print("phase 9d: flash_decode's device time at phase 3's and 3d's and the long shapes")
+    phase_decode_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
                    "plan_train": plan_train["launches"][e["name"]],

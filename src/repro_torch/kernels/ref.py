@@ -74,6 +74,99 @@ def naive_decode(q, k_cache, v_cache, cache_len, *, scale=None, window=None,
     return torch.einsum("bk,bkd->bd", p, vv).to(q.dtype)
 
 
+def decode_chunk(G: int, D: int, elem: int) -> int:
+    """Keys a stage of ``csrc/decode_attention.cu`` holds for a group of G
+    query heads at head_dim D in ``elem``-byte values: 64 for 1-2 heads at
+    rows of the head-dim class (64, 128 or 256) up to 512 bytes, else 32."""
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    return 64 if G <= 2 and dmax * elem <= 512 else 32
+
+
+def decode_split_emulated(q, k_cache, v_cache, cache_len, *, splits: int,
+                          scale=None, window=None, softcap=None, guard=True):
+    """``csrc/decode_attention.cu``'s order of work, in float32 on the CPU.
+
+    q: (B, H, D); caches (B, S, Hkv, D); cache_len int or (B,).  For each
+    (b, KV head) the group's G query heads go together.  The row's valid
+    range [lo, len) is divided over ``splits`` (the CTAs of a cluster) in
+    even whole chunks (:func:`decode_chunk` keys).  In a split, each of 8
+    warps takes an eighth of every chunk and keeps its own online softmax per
+    head: the block's scores (softcapped, keys past the range at -inf), one
+    max and one exponent a score, (m, l, acc) rescaled once a block.  The
+    warps' partials are merged into the split's, and the splits' into the
+    output, each with weights exp(m_r - m_all), exactly 0 for an empty warp
+    or split when ``guard`` (without it, an empty one makes its row NaN), l
+    and the output as running fused sums in rank order, then times
+    1 / max(l, 1e-30).  Sums over head_dim and a block's keys run in torch's
+    order, not lane by lane.
+    """
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G, W = H // Hkv, 8
+    C = decode_chunk(G, D, q.element_size())
+    KW = C // W
+    if scale is None:
+        scale = D ** -0.5
+    qs = q.float().reshape(B, Hkv, G, D) * scale
+    kf, vf = (t.float().transpose(1, 2) for t in (k_cache, v_cache))   # (B, Hkv, S, D)
+    lens = torch.as_tensor(cache_len, dtype=torch.int64).expand(B).clamp(max=S)
+    lo = (lens - window).clamp(min=0) if window is not None and window > 0 else lens * 0
+    n = (lens - lo).clamp(min=0)
+    per = ((n + splits - 1) // splits + C - 1) // C * C
+    neg_inf = torch.tensor(-math.inf)
+
+    def merge(ms, ls, accs):
+        """Rank-ordered merge of partials stacked on dim 0."""
+        m_all = ms[0]
+        for m in ms[1:]:
+            m_all = torch.maximum(m_all, m)
+        l_all, o = torch.zeros_like(ls[0]), torch.zeros_like(accs[0])
+        for m, l, acc in zip(ms, ls, accs):
+            w = torch.exp(m - m_all)
+            if guard:
+                w = torch.where(m == -math.inf, 0.0, w)
+            l_all = w * l + l_all
+            o = w[..., None] * acc + o
+        return m_all, l_all, o
+
+    parts = []
+    for r in range(splits):
+        k0 = lo + r * per
+        k1 = torch.minimum(lens, k0 + per)
+        nch = ((k1 - k0).clamp(min=0) + C - 1) // C
+        m = torch.full((W, B, Hkv, G), -math.inf)
+        l = torch.zeros((W, B, Hkv, G))
+        acc = torch.zeros((W, B, Hkv, G, D))
+        for c in range(int(nch.max()) if B else 0):
+            active = (c < nch)[None, :, None, None]
+            key = k0[:, None] + c * C + torch.arange(C)            # (B, C)
+            valid = key < k1[:, None]
+            idx = torch.where(valid, key, 0).clamp(0, max(S - 1, 0))[:, None, :, None]
+            idx = idx.expand(B, Hkv, C, D)
+            rows = valid[:, None, :, None]
+            kc = torch.where(rows, torch.gather(kf, 2, idx), 0.0)   # rows past the range: 0
+            vc = torch.where(rows, torch.gather(vf, 2, idx), 0.0)
+            s = _softcap(torch.einsum("bhgd,bhkd->bhgk", qs, kc), softcap)
+            s = torch.where(valid[:, None, None, :], s, neg_inf)
+            s = s.reshape(B, Hkv, G, W, KW).permute(3, 0, 1, 2, 4)   # (W, B, Hkv, G, KW)
+            m_new = torch.maximum(m, s.amax(-1))
+            seen = m_new != -math.inf                               # a valid key so far
+            corr = torch.where(seen, torch.exp(m - m_new), 1.0)
+            pr = torch.where(seen[..., None], torch.exp(s - m_new[..., None]), 0.0)
+            l_new = l * corr + pr.sum(-1)
+            pv = torch.einsum("wbhgk,wbhkd->wbhgd", pr,
+                              vc.reshape(B, Hkv, W, KW, D).permute(2, 0, 1, 3, 4))
+            acc_new = acc * corr[..., None] + pv
+            m = torch.where(active, m_new, m)
+            l = torch.where(active, l_new, l)
+            acc = torch.where(active[..., None], acc_new, acc)
+        parts.append(merge(m, l, acc))                              # the warps' merge
+
+    _, l_all, o = merge(*(torch.stack(t) for t in zip(*parts)))     # the cluster's merge
+    out = o * (1.0 / torch.clamp(l_all, min=1e-30))[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def naive_swiglu(x, wg, wu, wd, act: str = "silu"):
     """x: (T, D); wg/wu: (D, F); wd: (F, D) -> (T, D), f32 accumulation."""
     xf = x.float()

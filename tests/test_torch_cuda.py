@@ -53,6 +53,11 @@ DECODE_CASES = [
     (2, 4, 1, 512, 128, 100, None, False, torch.float32),      # MQA + window
     (2, 4, 4, 128, 96, None, 30.0, True, torch.float32),       # softcap
     (2, 4, 2, 384, 64, None, None, True, torch.bfloat16),
+    (1, 64, 8, 4096, 128, None, None, True, torch.float32),    # 16 splits in a cluster
+    (2, 16, 1, 2048, 96, 700, None, True, torch.float32),      # G = 16: two head tiles
+    (1, 32, 4, 1000, 256, None, 50.0, False, torch.float32),   # head_dim 256, softcap
+    (2, 12, 4, 777, 80, None, None, True, torch.bfloat16),     # G = 3, head_dim 80
+    (3, 8, 2, 500, 50, 64, None, True, torch.float32),         # rows of 200 bytes: element copies
 ]
 
 
@@ -74,6 +79,37 @@ def test_decode_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_decode_kernel_splits_past_valid_keys_and_strided_caches(dev):
+    """A 16-split cluster over a cache holding 3 and 40 valid keys (whole
+    splits empty), a row of length 0 (0 out, as the kernel documents), the
+    same answer for 1 and 16 splits, and caches read by strides from a wider
+    buffer (period-stacked, offset by one element: not 16-byte aligned)."""
+    rng = np.random.default_rng(5)
+    q = _rand(rng, (2, 64, 128), dev)
+    k, v = (_rand(rng, (2, 4096, 8, 128), dev) for _ in range(2))
+    for lens in ([3, 40], [0, 40]):
+        clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = ops.flash_decode_op(q, k, v, clen)
+        want = ops.plain_flash_decode(q, k, v, clen)
+        rows = [b for b, n in enumerate(lens) if n > 0]
+        torch.testing.assert_close(out[rows], want[rows], atol=1e-4, rtol=1e-4)
+        if 0 in lens:
+            assert torch.equal(out[lens.index(0)], torch.zeros_like(out[0]))
+    # short cache: one split; the same keys in a long cache: 16 splits
+    short = ops.flash_decode_op(q, k[:, :64].contiguous(), v[:, :64].contiguous(),
+                                torch.tensor([30, 64], dtype=torch.int32, device=dev))
+    long = ops.flash_decode_op(q, k, v, torch.tensor([30, 64], dtype=torch.int32, device=dev))
+    torch.testing.assert_close(short, long, atol=1e-5, rtol=1e-5)
+    wide = _rand(rng, (2, 2, 300, 4, 97), dev)            # (period, B, S, Hkv, D + 1)
+    kk, vv = wide[0, ..., 1:], wide[1, ..., :96]
+    qq = _rand(rng, (2, 8, 96), dev)
+    clen = torch.tensor([300, 123], dtype=torch.int32, device=dev)
+    out = ops.flash_decode_op(qq, kk, vv, clen, window=100)
+    want = ops.plain_flash_decode(qq, kk, vv, clen, window=100)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
 
 
 ATTN_CASES = [
