@@ -86,6 +86,27 @@ vocab 65536):
    and of one forward-only evaluation, M (P - 1) boundary round trips each
    way; (e) holds a split with unequal stages, ((0, 1), (1, 4)), at 4
    full-width layers card vs CPU (loss and every gradient leaf);
+6d. the paper's pipeline replay at full width, after 6c's state is freed:
+   (a) double buffering on a split with unequal stages, ((0, 1), (1, 4)),
+   at 4 full-width layers: the loss and every gradient leaf bit for bit
+   the synchronous pipeline's, without and with the int8 wire, the launch
+   counts unchanged (the synchronous gradient taken twice first: the card's
+   step is deterministic); (b) ``launch.train --plan --profile <6c's
+   artifact> --staleness 1`` (int8 wire, 256 MiB buckets, double buffered
+   by default) for 4 steps at 32 layers: every step's launch counts as the
+   plan implies, round 0 leaving the parameters as they were (the loss of
+   an evaluation on its batch equal to its own), the update of round 0
+   lowering that loss after round 1, the flush at the end (the step counter
+   at 4), the peak memory beside 6c's; (c) the same flags on a virtual
+   cluster that survives a failure (6c's measurement retiled into 3
+   devices of 36 GB, model axis 6) with ``--fail-at 3 --fail-rank <the
+   last stage's device> --backup-every 2`` for 5 steps: the plan before
+   and after, the ``RecoveryReport``'s figures, the wall time of
+   ``recover_now`` split into replan, restore from host, migration and
+   re-seeded backups, and the first step after; the time and bytes of one
+   ``backup_now``; the restored rows and edge leaves bitwise the step-2
+   backup, every other row bitwise untouched, the reconciliation, finite
+   losses and every step's launch counts;
 7a. Jamba layer parity at full width, card vs CPU: a Mamba+MLP layer and
    the attention+MLP layer, ``apply_layer`` on (1, 256) tokens, then 8
    ``decode_layer`` steps from fresh states;
@@ -121,8 +142,9 @@ vocab 65536):
    ``repeat_interleave``'s) device time, each over input sets called in
    turn until their caches span 4x the L2 (so they come from HBM); prints
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
-   the phi3 serving, phi3 training, phi3 planned training, Jamba serving
-   and rwkv6-7b serving paths) and, last, ``{"ok": true, ...}``.
+   the phi3 serving, phi3 training, phi3 planned training, staleness-1 and
+   failure-recovery training, Jamba serving and rwkv6-7b serving paths) and,
+   last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -1817,6 +1839,377 @@ def phase_split_parity(torch, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6d: the pipeline replay: double buffering, staleness 1, a failure
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _split_lowered(cfg, B, M):
+    from repro_torch.core.lowering import LoweredPlan
+    return LoweredPlan(arch=cfg.name, stage=2, n_micro=M, micro_batch=B // M,
+                       global_batch=B, n_periods=4, stage_periods=((0, 1), (1, 4)),
+                       stage_layers=((0, 2), (2, 6)), device_groups=((0,), (1,)),
+                       micro_alloc=((B // M,), (B // M,)), warmup=(3, 1))
+
+
+def phase_double_buffer(torch, ops, dev) -> None:
+    """6d (a): on phase 6c (e)'s split at 4 full-width layers, the gradient
+    with the boundary round trips on a second stream against the
+    synchronous pipeline's: loss and every leaf bit for bit, the same
+    kernel launches, without and with the int8 wire."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.train import build_train_step_from_lowered, init_train_state
+
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=4)
+    B, S, M = 4, 256, 4
+    lowered = _split_lowered(cfg, B, M)
+    batch_np = SyntheticLM(cfg.vocab_size, S).batch(0, B)
+    params = None
+    for compress in ("none", "int8"):
+        kw = dict(compress=compress, bucket_mb=256 if compress != "none" else None,
+                  error_feedback=False, device=dev)
+        runs = []
+        for db in (False, False, True):
+            ts = build_train_step_from_lowered(cfg, 2, lowered, double_buffer=db, **kw)
+            if params is None:
+                params, _ = init_train_state(4, ts)
+            batch = ts.shard_batch(batch_np)
+            before = dict(ops.LAUNCHES)
+            if ts.spec.bucketed:
+                (loss, _), grads, _ = ts.grad_fn(params, batch, ts.init_ef())
+            else:
+                (loss, _), grads = ts.grad_fn(params, batch)
+            torch.cuda.synchronize(dev)
+            launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            runs.append((loss.view(1), tree_leaves(grads), launches))
+        (l0, g0, n0), (l1, g1, n1), (l2, g2, n2) = runs
+        if not (_bits_equal(torch, l0, l1) and all(_bits_equal(torch, a, b)
+                                                   for a, b in zip(g0, g1))):
+            raise AssertionError(f"{compress}: two synchronous gradients differ on the card")
+        same = _bits_equal(torch, l0, l2) and all(_bits_equal(torch, a, b)
+                                                  for a, b in zip(g0, g2))
+        print(f"  {compress} wire, split {lowered.stage_periods}, M {M}: double-buffered "
+              f"loss and {len(g2)} gradient leaves bitwise the synchronous: {same}; "
+              f"launches {n2} (synchronous {n0})")
+        if not same:
+            raise AssertionError(f"{compress}: double-buffered gradient != synchronous")
+        if n2 != n0 or n1 != n0:
+            raise AssertionError(f"{compress}: launches {n2} with double buffering, {n0} "
+                                 "without")
+        if compress == "int8" and n2["quantize_tiles"] != 2 * M + len(ts.buckets):
+            raise AssertionError(f"int8: {n2['quantize_tiles']} quantize launches, not "
+                                 f"2 M (P - 1) + buckets = {2 * M + len(ts.buckets)}")
+        del runs, g0, g1, g2, grads
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_counts(L, M, P, nb):
+    hops = M * (P - 1)
+    return {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
+            "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
+            "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
+            "mamba_scan": 0, "rwkv6_wkv": 0}
+
+
+def _check_marks(marks, launches, want_of):
+    prev = {k: 0 for k in launches}
+    for label, snap, extra in marks:
+        delta = {k: snap[k] - prev[k] for k in snap}
+        want = want_of(label, extra)
+        print(f"  launches in {label}: {delta}")
+        if delta != want:
+            raise AssertionError(f"launch counts in {label} {delta} != {want}")
+        prev = snap
+    if prev != launches:
+        raise AssertionError("kernels launched outside the counted steps")
+
+
+def phase_stale_train(torch, ops, dev, card: str, plan_train: dict) -> dict:
+    """6d (b): ``launch.train --plan --profile <6c's artifact> --staleness 1``
+    at 32 layers: launch counts, round 0 without an update, the flush, the
+    peak memory beside 6c's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+
+    cfg = get_config("phi3-mini-3.8b")
+    L, M, B, S, steps = cfg.n_layers, 4, 8, 256, 4
+    path = str(ROOT / "profiles" / "phase6c_profile.json")
+    argv = ["--plan", "--profile", path, "--devices", "4", "--global-batch", str(B),
+            "--n-micro", str(M), "--seq", str(S), "--compress", "int8", "--bucket-mb", "256",
+            "--no-error-feedback", "--staleness", "1", "--steps", str(steps),
+            "--log-every", "1"]
+    marks, peaks, evals = [], [], {}
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES), None))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        if step == 0:
+            evals["batch"] = batch
+        if step in (0, 1):
+            evals[step] = float(ts.loss_fn(params, evals["batch"])[0])
+            marks.append((f"eval after step {step}", dict(ops.LAUNCHES), "eval"))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step)
+    launches = dict(ops.LAUNCHES)
+    ts, lowered = res["ts"], res["lowered"]
+    if ts.spec.staleness != 1 or not ts.spec.double_buffer:
+        raise AssertionError(f"the step runs staleness {ts.spec.staleness}, double buffer "
+                             f"{ts.spec.double_buffer}")
+    P, nb = lowered.stage, len(ts.buckets)
+    step_counts = _train_counts(L, M, P, nb)
+    hops = M * (P - 1)
+    eval_counts = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
+                   "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
+                   "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
+    _check_marks(marks, launches, lambda label, extra: eval_counts if extra else step_counts)
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    # round 0 takes gradients only: the parameters after it are the initial
+    # ones, so an evaluation on its batch reads its own loss
+    if abs(evals[0] - losses[0]) > 1e-6 * abs(losses[0]):
+        raise AssertionError(f"round 0 changed the parameters: loss {losses[0]}, "
+                             f"{evals[0]} after it")
+    if not evals[1] < losses[0]:
+        raise AssertionError("round 1's update (round 0's gradients) did not lower the "
+                             "loss on round 0's batch")
+    if int(res["opt_state"].step) != steps:
+        raise AssertionError(f"{int(res['opt_state'].step)} updates after {steps} rounds "
+                             "and the flush")
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    peak = max(peaks)
+    print(f"  round 0: loss {losses[0]:.6f}, evaluation after it {evals[0]:.6f} (no "
+          f"update); after round 1 {evals[1]:.6f}; {int(res['opt_state'].step)} updates "
+          f"after the flush")
+    print(f"stale_train phi3-mini-3.8b full width fp32, staleness 1, double-buffered "
+          f"boundaries, plan periods {lowered.stage_periods}: {ms_step:.1f} ms/step over "
+          f"{res['timed_steps']} timed steps (6c sync: {plan_train['ms_per_step']:.1f}); "
+          f"peak memory {peak / 1e9:.3f} GB (6c sync: {plan_train['peak_gb']:.3f} GB); "
+          f"losses {[round(x, 6) for x in losses]}; card {card}")
+    if peak / 1e9 > plan_train["peak_gb"] + 1.0:
+        raise AssertionError(f"staleness-1 peak {peak / 1e9:.3f} GB is more than 1 GB above "
+                             f"the synchronous step's {plan_train['peak_gb']:.3f} GB")
+    del res, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gb": peak / 1e9}
+
+
+def _host_rows(tree, lo, hi):
+    from repro_torch.optim import tree_leaves
+    return [t[lo:hi].cpu() for t in tree_leaves(tree)]
+
+
+def phase_fail_train(torch, ops, dev, card: str) -> dict:
+    """6d (c): a failure at full width.  6c's measurement retiled into 3
+    virtual devices of 36 GB (two survivors hold the 61.1 GB of state),
+    model axis 6; ``launch.train --plan --staleness 1 --fail-at 3`` of the
+    last stage's device with backups every 2 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiler import load_profile, save_profile
+    from repro_torch.launch import profile as profiler_cli
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("phi3-mini-3.8b")
+    L, M, B, S, steps, n_dev, axis, gb = cfg.n_layers, 4, 8, 256, 5, 3, 6, 36
+    src = str(ROOT / "profiles" / "phase6c_profile.json")
+    path = str(ROOT / "profiles" / "phase6d_profile.json")
+    t0 = time.perf_counter()
+    save_profile(path, profiler_cli.retile(load_profile(src), n_dev, gb * 1e9))
+    print(f"  6c's measurement retiled into {n_dev} devices of {gb} GB in "
+          f"{time.perf_counter() - t0:.2f}s (no layer timed again)")
+    base = ["--plan", "--profile", path, "--devices", str(axis), "--global-batch", str(B),
+            "--n-micro", str(M), "--seq", str(S), "--compress", "int8", "--bucket-mb", "256",
+            "--no-error-feedback", "--staleness", "1"]
+    plan0, _ = launcher._plan(launcher._parse(base), cfg, load_profile(path), axis, dev)
+    last = plan0.stages[-1]
+    if len(last.group) != 1:
+        raise AssertionError(f"the plan's last stage {last} is not a single device")
+    rank = last.group[0]
+    argv = base + ["--fail-at", "3", "--fail-rank", str(rank), "--backup-every", "2",
+                   "--steps", str(steps), "--log-every", "1"]
+    marks, peaks, wall, got = [], [], {}, {}
+    stamps = []
+
+    def timed(session, name, record=None):
+        fn = getattr(session, name)
+
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            wall.setdefault(name, []).append(time.perf_counter() - t)
+            if record is not None:
+                record(out, *a)
+            return out
+        setattr(session, name, run)
+
+    def on_session(session):
+        got["session"] = session
+        got["plan_before"] = [(st.layers, st.group) for st in session.plan.stages]
+        got["periods_before"] = session.lowered.stage_periods
+
+        def backed_up(_out):
+            got.setdefault("backups", []).append(
+                (session.step_count, session.store.bytes_transferred))
+
+        timed(session, "backup_now", lambda out, *a: backed_up(out))
+        timed(session, "replan")
+        timed(session, "recover_now")
+        timed(session, "flush_gradients")
+
+        migrate = session.migrate
+
+        def migrate_watched(report):
+            # after the flush, before anything moves: the rows of every
+            # stage that survives, on the host (the checks' own copies are
+            # timed apart, and left out of the recovery's split)
+            t = time.perf_counter()
+            q = next(p for p, st in enumerate(session.plan.stages) if rank in st.group)
+            i, j = session.lowered.stage_periods[q]
+            got["lost"] = (q, i, j, session.store.meta(q)["step"])
+            got["kept"] = [(lo, hi, _host_rows(session.params["periods"], lo, hi))
+                           for lo, hi in ((0, i), (j, cfg.n_periods)) if hi > lo]
+            got["embed"] = session.params["embed"].cpu()
+            snap = session.store.restore(q)
+            got["backup"] = ([t.clone() for t in tree_leaves(snap["rows"])],
+                             {k: [t.clone() for t in tree_leaves(v)]
+                              for k, v in snap["extras"].items()})
+            wall["checks"] = [time.perf_counter() - t]
+            result = migrate(report)
+            t = time.perf_counter()
+            got["kept_ok"] = all(
+                _bits_equal(torch, a[lo:hi].cpu(), b) for lo, hi, rows in got["kept"]
+                for a, b in zip(tree_leaves(session.params["periods"]), rows))
+            if "embed" not in got["backup"][1]:
+                got["kept_ok"] &= _bits_equal(torch, session.params["embed"].cpu(),
+                                              got["embed"])
+            wall["checks"].append(time.perf_counter() - t)
+            return result
+
+        session.migrate = migrate_watched
+        restore = session._restore_stage
+
+        def restore_watched(tree, q, new_lp):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = restore(tree, q, new_lp)
+            wall.setdefault("restore", []).append(time.perf_counter() - t)
+            t = time.perf_counter()
+            _, i, j, _ = got["lost"]
+            rows, extras = got["backup"]
+            got["restored_rows_equal"] = all(
+                _bits_equal(torch, a[i:j].cpu(), b)
+                for a, b in zip(tree_leaves(tree["periods"]), rows))
+            got["restored_extras_equal"] = all(
+                _bits_equal(torch, a.cpu(), b) for k, v in extras.items()
+                for a, b in zip(tree_leaves(tree[k]), v))
+            wall["checks"].append(time.perf_counter() - t)
+            return out
+
+        session._restore_stage = restore_watched
+
+    def after_step(step, ts, params, batch):
+        torch.cuda.synchronize(dev)
+        stamps.append(time.perf_counter())
+        session = got["session"]
+        marks.append((f"step {step}", dict(ops.LAUNCHES),
+                      (session.lowered.stage, len(ts.buckets))))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    torch.cuda.synchronize(dev)
+    t_start = time.perf_counter()
+    res = launcher.main(argv, after_step=after_step, on_session=on_session)
+    launches = dict(ops.LAUNCHES)
+    session = res["session"]
+    _check_marks(marks, launches, lambda label, extra: _train_counts(L, M, *extra))
+    if len(session.recoveries) != 1:
+        raise AssertionError(f"{len(session.recoveries)} recoveries, not 1")
+    out = session.recoveries[0]
+    rep = out.report
+    q, i, j, backup_step = got["lost"]
+    print(f"  plan before: {got['plan_before']}, periods {got['periods_before']}; "
+          f"failed rank {rank} (stage {q}, periods [{i}, {j}), backed up at step "
+          f"{backup_step})")
+    print(f"  plan after: {[(st.layers, st.group) for st in session.plan.stages]}, "
+          f"periods {session.lowered.stage_periods}, mode {out.mode}")
+    print(f"  RecoveryReport: detection {rep.detection_s:.3f} s, replan "
+          f"{rep.replan_s * 1e3:.3f} ms, migration {rep.migration_s:.3f} s, restore "
+          f"{rep.restore_s:.3f} s (the virtual cluster's links, 1000 Mbps), boundary moves "
+          f"{[(m.boundary, m.lo, m.hi, m.nbytes) for m in rep.boundary_moves]}; "
+          f"moved periods {out.migration.moved_periods}, restored {out.restored_periods}, "
+          f"migration bytes {out.migration.total_bytes:.0f}; reconciliation "
+          f"{out.reconciliation}")
+    print(f"  restored rows and edge leaves bitwise the step-{backup_step} backup: "
+          f"{got['restored_rows_equal'] and got['restored_extras_equal']}; every other "
+          f"row bitwise untouched by the migration: {got['kept_ok']}")
+    if backup_step != 2:
+        raise AssertionError(f"the restored backup was taken at step {backup_step}, not 2")
+    if out.mode != "lightweight" or out.restored_stage != q:
+        raise AssertionError(f"recovery mode {out.mode}, restored stage {out.restored_stage}")
+    if not (got["restored_rows_equal"] and got["restored_extras_equal"]):
+        raise AssertionError("the restored rows or edge leaves differ from the backup")
+    if not got["kept_ok"]:
+        raise AssertionError("a surviving row changed in the migration")
+    if out.reconciliation is None or any(
+            r["table_bytes"] != r["analytic_bytes"] for r in out.reconciliation.values()):
+        raise AssertionError(f"reconciliation {out.reconciliation}")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    checks = sum(wall["checks"])
+    recover = wall["recover_now"][0] - checks
+    flush = wall["flush_gradients"][0]
+    backups = got["backups"]
+    # backups at step 2, the re-seed inside the recovery, and step 4
+    if [b[0] for b in backups] != [2, 3, 4]:
+        raise AssertionError(f"backups at steps {[b[0] for b in backups]}, not 2, 3 "
+                             "(the re-seed) and 4")
+    reseed = wall["backup_now"][1]
+    per_step = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    first_after = stamps[3] - stamps[2] - wall["recover_now"][0]
+    one_backup_s = wall["backup_now"][0]
+    one_backup_bytes = backups[0][1]
+    rest = recover - flush - wall["replan"][0] - wall["restore"][0] - reseed
+    print(f"  recover_now wall {recover * 1e3:.1f} ms (less {checks * 1e3:.1f} ms of this "
+          f"phase's own copies and checks): staleness flush {flush * 1e3:.1f} ms, replan "
+          f"{wall['replan'][0] * 1e3:.1f} ms, restore from host {wall['restore'][0] * 1e3:.1f} "
+          f"ms, re-seeded backups {reseed * 1e3:.1f} ms, the rest (detection on the "
+          f"simulated clock, migration, reconciliation, install) {rest * 1e3:.1f} ms; first "
+          f"step after {first_after * 1e3:.1f} ms")
+    print(f"  backup_now: {one_backup_s * 1e3:.1f} ms for {one_backup_bytes / 1e9:.3f} GB "
+          f"({one_backup_bytes / one_backup_s / 1e9:.2f} GB/s into pinned host memory); "
+          f"all backups (step, cumulative bytes) {backups}, wall {[round(x * 1e3, 1) for x in wall['backup_now']]} ms")
+    print(f"fail_train phi3-mini-3.8b full width fp32, {n_dev} x {gb} GB virtual devices, "
+          f"staleness 1: step wall {[round(x * 1e3, 1) for x in per_step]} ms (step 3 "
+          f"holds the recovery); peak memory {max(peaks) / 1e9:.3f} GB; losses "
+          f"{[round(x, 6) for x in losses]}; card {card}")
+    got.clear()
+    del res, session, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recover_ms": recover * 1e3, "peak_gb": max(peaks) / 1e9,
+            "first_step_after_ms": first_after * 1e3,
+            "backup_ms": one_backup_s * 1e3, "backup_gb": one_backup_bytes / 1e9,
+            "step_ms": [x * 1e3 for x in per_step]}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: Jamba-1.5-Large without experts, one 8-layer period
 # ---------------------------------------------------------------------------
 
@@ -2171,6 +2564,12 @@ def main() -> int:
     plan_train = phase_plan_train(torch, ops, dev, card)
     print("phase 6c (e): a planner split at full width, 4 layers, card vs CPU")
     phase_split_parity(torch, dev)
+    print("phase 6d (a): double-buffered boundaries at full width, 4 layers")
+    phase_double_buffer(torch, ops, dev)
+    print("phase 6d (b): staleness 1 through launch.train --plan at full width")
+    stale_train = phase_stale_train(torch, ops, dev, card, plan_train)
+    print("phase 6d (c): a failure and its recovery through launch.train --plan --fail-at")
+    fail_train = phase_fail_train(torch, ops, dev, card)
     print("phase 7a: Jamba layers at full width, card vs CPU")
     phase_jamba_layers(torch, dev)
     jamba = phase_jamba_serve(torch, ops, dev, card)
@@ -2188,6 +2587,8 @@ def main() -> int:
     for e in entries:
         by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
                    "plan_train": plan_train["launches"][e["name"]],
+                   "stale_train": stale_train["launches"][e["name"]],
+                   "fail_train": fail_train["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")

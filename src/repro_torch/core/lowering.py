@@ -26,13 +26,22 @@ tp = model_axis / P is a label) and the data axis is 1.
 discrete-event simulator: per-stage op counts, the unit-cost makespan in
 ticks, and the O(K_p) resident-activation bound.
 
-A copy of ``repro.core.lowering``'s framework-free part.  Its replay half
-(``relower``, ``snap_plan``, ``period_owner``, ``period_positions``,
-``migration_index`` and the parameter migration) comes with the session
-slice of the port, which calls it: ``repro``'s indices address its
-zero-padded arranged stack, and the port's runtime keeps the period stack
-in model order, stage p owning the rows ``stage_periods[p]``
-(``runtime.pipeline``).
+The *replay* half makes a lowered pipeline re-lowerable while training:
+``relower`` lowers a replacement ``Plan`` against an existing
+``LoweredPlan``, ``migrate_params`` / ``migrate_opt_state`` carry the
+period stack (and the optimizer moments, by the same index map) from the
+old stage split to the new one, and ``reconcile_migration`` checks the
+per-boundary bytes against the analytical ``RecoveryReport`` a
+``lightweight_replay`` produced.
+
+A copy of ``repro.core.lowering``'s framework-free part and its replay
+half.  ``repro``'s replay indices address its zero-padded arranged stack
+(stage p's slice ``[p*k, (p+1)*k)``); the port's runtime keeps the period
+stack in model order under every split, stage p owning the rows
+``stage_periods[p]`` (``runtime.pipeline``), so a period's row is its
+canonical index, the migration gather is the identity, and on one card a
+migration moves no rows.  Its report still names the periods and bytes
+that change owner: what a run over several cards would move.
 """
 
 from __future__ import annotations
@@ -344,6 +353,249 @@ def check_against_simulator(lowered: LoweredPlan, plan: Plan,
             assert sim.device_busy[d] <= sim.stage_busy[p] * (1 + rel_tol), \
                 (d, p, sim.device_busy[d], sim.stage_busy[p])
     return sim
+
+
+# ---------------------------------------------------------------------------
+# Live replay: re-lowering and parameter migration
+# ---------------------------------------------------------------------------
+
+
+def relower(old: LoweredPlan, new_plan: Plan, cfg,
+            model_axis: int | None = None) -> LoweredPlan:
+    """Lower ``new_plan`` as a replacement for ``old`` on the same runtime.
+
+    Beyond ``lower_plan``'s own checks, validates that the two lowered plans
+    describe the same model and micro-batch structure, so the period stack
+    (and optimizer state) can be migrated rather than re-initialized.
+    """
+    if old.arch and new_plan.arch and old.arch != new_plan.arch:
+        raise LoweringError(f"arch changed across replay: {old.arch!r} -> "
+                            f"{new_plan.arch!r}")
+    new = lower_plan(new_plan, cfg, model_axis)
+    if new.n_periods != old.n_periods:
+        raise LoweringError(f"period count changed: {old.n_periods} -> "
+                            f"{new.n_periods}")
+    if new.global_batch != old.global_batch or new.n_micro != old.n_micro:
+        raise LoweringError(
+            f"batch structure changed: (B={old.global_batch}, M={old.n_micro})"
+            f" -> (B={new.global_batch}, M={new.n_micro})")
+    return new
+
+
+def snap_plan(plan: Plan, lowered: LoweredPlan, L: int) -> Plan:
+    """``plan`` with stage layer ranges snapped to what was deployed.
+
+    Lowering snaps layer cuts to period boundaries; the plan the runtime
+    actually executes therefore owns the *snapped* ranges.  The returned
+    plan (stage ranges and exec-step ranges rewritten; costs kept as the
+    planner's estimates) is what a session should feed back into
+    ``lightweight_replay`` so old-ownership accounting matches reality.
+    """
+    plen = (L - 2) // lowered.n_periods
+    cuts = [0] + [1 + j * plen for _, j in lowered.stage_periods[:-1]] + [L]
+    ranges = [(cuts[p], cuts[p + 1]) for p in range(lowered.stage)]
+    stages = tuple(dataclasses.replace(st, layers=r)
+                   for st, r in zip(plan.stages, ranges))
+    ex = iter(ranges)
+    steps = tuple(dataclasses.replace(s, layers=next(ex))
+                  if s.kind == "exec" else s for s in plan.steps)
+    return dataclasses.replace(plan, stages=stages, steps=steps)
+
+
+def period_owner(lp: LoweredPlan) -> tuple[int, ...]:
+    """Owning stage of each canonical period under ``lp``'s split."""
+    out = [0] * lp.n_periods
+    for p, (i, j) in enumerate(lp.stage_periods):
+        for t in range(i, j):
+            out[t] = p
+    return tuple(out)
+
+
+def period_positions(lp: LoweredPlan) -> dict[int, int]:
+    """canonical period -> row in ``lp``'s period stack.
+
+    The single source of truth for the stack's layout: migration, backup
+    restore and the bit-identity checks index through it.  The port's stack
+    is in model order under every split (stage p owns rows
+    ``stage_periods[p]``), so the row is the period itself.
+    """
+    return {t: t for i, j in lp.stage_periods for t in range(i, j)}
+
+
+def migration_index(old: LoweredPlan, new: LoweredPlan):
+    """Gather index mapping the OLD period stack onto the NEW one.
+
+    Returns ``(take, mask)`` such that
+    ``new_leaf = where(mask, old_leaf[take], 0)`` (``repro``'s form, whose
+    mask zeroes its padding rows).  With both stacks in model order, take is
+    ``0 .. n_periods-1`` and the mask all ones.
+    """
+    pos = period_positions(old)
+    take = [pos[t] for i, j in new.stage_periods for t in range(i, j)]
+    return take, [1.0] * len(take)
+
+
+def _check_identity(old: LoweredPlan, new: LoweredPlan) -> None:
+    take, _ = migration_index(old, new)
+    if take != list(range(new.n_periods)):
+        raise LoweringError(f"stage splits {old.stage_periods} -> "
+                            f"{new.stage_periods} do not keep the periods in "
+                            "model order")
+
+
+# ``old_owner`` sentinel for migrate_params: the period's old holder is not
+# any stage of the new plan — it streams *directly* from an off-plan source
+# (a draining/evicted leaver pushing its layers out, symmetric to a restore
+# but from live state) instead of hopping adjacent-stage boundaries.
+DIRECT_SOURCE = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrationReport:
+    """What ``migrate_params`` moved, per boundary of the NEW plan."""
+
+    moved_periods: tuple[int, ...]            # canonical indices that moved
+    restored_periods: tuple[int, ...]         # restored from backup instead
+    boundary_periods: tuple[tuple[int, ...], ...]   # per new-plan boundary
+    boundary_bytes: tuple[float, ...]         # actual array bytes crossing
+    period_bytes: float                       # bytes of one period's params
+    total_bytes: float
+    direct_periods: tuple[int, ...] = ()      # streamed off an off-plan source
+    direct_bytes: float = 0.0
+
+
+def migrate_params(params, old: LoweredPlan, new: LoweredPlan, *,
+                   old_owner=None):
+    """Migration of the period stack across a plan swap.
+
+    ``old_owner``: per-canonical-period owner in the NEW plan's stage
+    coordinates; ``None`` entries mark periods restored from a backup and
+    ``DIRECT_SOURCE`` entries periods streamed off an off-plan source (a
+    draining leaver) — both excluded from boundary accounting.  Defaults to
+    the old plan's own stage indices, which is exact when the stage count
+    is unchanged.
+
+    Returns ``(migrated_params, MigrationReport)``.  The stack is in model
+    order on both sides, so the gather is the identity and the returned
+    tree holds the same tensors (no row is copied on one card); the report
+    counts, per boundary of the new plan, the periods whose owner changed
+    and their bytes, as ``repro``'s does.
+    """
+    from repro_torch.optim import tree_leaves
+
+    _check_identity(old, new)
+    out = dict(params)
+
+    if old_owner is None:
+        old_owner = period_owner(old)
+    new_own = period_owner(new)
+    moved = tuple(t for t in range(new.n_periods)
+                  if old_owner[t] is not None
+                  and old_owner[t] != DIRECT_SOURCE
+                  and old_owner[t] != new_own[t])
+    direct = tuple(t for t in range(new.n_periods)
+                   if old_owner[t] == DIRECT_SOURCE)
+    restored = tuple(t for t in range(new.n_periods) if old_owner[t] is None)
+    period_bytes = sum(leaf.numel() * leaf.element_size() / leaf.shape[0]
+                       for leaf in tree_leaves(params["periods"]))
+    boundary_periods: list[tuple[int, ...]] = []
+    boundary_bytes: list[float] = []
+    for p in range(new.stage - 1):
+        crossing = tuple(t for t in moved
+                         if min(old_owner[t], new_own[t]) <= p
+                         < max(old_owner[t], new_own[t]))
+        boundary_periods.append(crossing)
+        boundary_bytes.append(period_bytes * len(crossing))
+    report = MigrationReport(moved, restored, tuple(boundary_periods),
+                             tuple(boundary_bytes), period_bytes,
+                             period_bytes * len(moved)
+                             + period_bytes * len(direct),
+                             direct, period_bytes * len(direct))
+    return out, report
+
+
+def migrate_opt_state(opt_state, old: LoweredPlan, new: LoweredPlan):
+    """Optimizer moments follow the params through the SAME index map (the
+    identity: the state is returned as it is)."""
+    from repro_torch.optim import AdamWState, SGDState
+
+    _check_identity(old, new)
+    if not isinstance(opt_state, (AdamWState, SGDState)):
+        raise TypeError(type(opt_state))
+    return opt_state
+
+
+def reconcile_migration(mig: MigrationReport, report, new: LoweredPlan,
+                        table, pattern_len: int,
+                        rel_tol: float = 1e-6) -> dict:
+    """Assert ``migrate_params``'s moved bytes match the analytical
+    ``RecoveryReport`` migration inputs (a replay run with
+    ``layer_quantum=pattern_len`` so its cuts are period-aligned).
+
+    Prices both directions: boundary crossings are checked per boundary of
+    the new plan whether the periods flowed toward a survivor (scale-in) or
+    onto a freshly admitted stage (scale-out) — the crossing predicate is
+    symmetric in old/new owner.  Reports carrying ``direct_moves`` (a
+    draining leaver streaming its layers straight to their new owners) are
+    additionally reconciled against ``mig.direct_periods``.
+
+    Returns per-boundary ``{analytic_bytes, table_bytes, runtime_bytes}``
+    (plus a ``"direct"`` entry when direct streams were priced) where
+    ``table_bytes`` re-prices the runtime's moved periods with the
+    profiler's layer table — the quantity that must equal the analytical
+    bytes exactly.
+    """
+    def period_table_bytes(periods):
+        return sum(
+            table.param_bytes(1 + t * pattern_len, 1 + (t + 1) * pattern_len)
+            for t in periods)
+
+    analytic = {bm.boundary: bm for bm in report.boundary_moves}
+    out: dict = {}
+    for p in range(new.stage - 1):
+        periods = mig.boundary_periods[p]
+        bm = analytic.get(p)
+        if bm is None:
+            assert not periods, (
+                f"runtime moved periods {periods} across boundary {p} but "
+                f"the recovery report shows no migration there")
+            continue
+        hull = set(range((bm.lo - 1) // pattern_len,
+                         -(-(bm.hi - 1) // pattern_len)))
+        assert set(periods) <= hull, (p, periods, sorted(hull))
+        table_bytes = period_table_bytes(periods)
+        assert abs(table_bytes - bm.nbytes) <= rel_tol * max(table_bytes, 1.0), (
+            f"boundary {p}: runtime periods {periods} price to "
+            f"{table_bytes:.0f} B in the layer table, but the recovery "
+            f"report migrated {bm.nbytes:.0f} B")
+        out[p] = {"analytic_bytes": bm.nbytes, "table_bytes": table_bytes,
+                  "runtime_bytes": mig.boundary_bytes[p]}
+
+    direct_moves = getattr(report, "direct_moves", ())
+    if mig.direct_periods or direct_moves:
+        hull = set()
+        for dm in direct_moves:
+            hull |= set(range((dm.lo - 1) // pattern_len,
+                              -(-(dm.hi - 1) // pattern_len)))
+        assert set(mig.direct_periods) <= hull, (
+            f"runtime direct-streamed periods {mig.direct_periods} outside "
+            f"the report's direct-move hull {sorted(hull)}")
+        table_bytes = period_table_bytes(mig.direct_periods)
+        # the analytic moves may also carry the leaver's embed/head bytes
+        # (table edge pseudo-layers); compare on the real-layer span only
+        L = table.L
+        analytic_bytes = sum(
+            table.param_bytes(max(dm.lo, 1), min(dm.hi, L - 1))
+            for dm in direct_moves)
+        assert abs(table_bytes - analytic_bytes) <= \
+            rel_tol * max(table_bytes, 1.0), (
+            f"direct streams: runtime periods {mig.direct_periods} price to "
+            f"{table_bytes:.0f} B, but the report streams "
+            f"{analytic_bytes:.0f} B of real layers off the leaver")
+        out["direct"] = {"analytic_bytes": analytic_bytes,
+                         "table_bytes": table_bytes,
+                         "runtime_bytes": mig.direct_bytes}
+    return out
 
 
 # ---------------------------------------------------------------------------

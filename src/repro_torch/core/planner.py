@@ -12,10 +12,9 @@ heterogeneous batch allocation), GPipe-style PP (compute-balanced, ignores
 boundary activations), PipeDream / Dapple planners (homogeneous-cluster
 assumptions, no memory budget), and a HetPipe-style HDP arrangement.
 
-A copy of ``repro.core.planner``'s training half.  Its serving half
-(``plan_serve``, ``ServePlan`` and their pricing) comes with planned
-serving, and ``replan_for_membership`` with the session slice, later
-slices of the port.
+A copy of ``repro.core.planner``'s training half, with
+``replan_for_membership``.  Its serving half (``plan_serve``, ``ServePlan``
+and their pricing) comes with planned serving, a later slice of the port.
 """
 
 from __future__ import annotations
@@ -58,7 +57,8 @@ class Plan:
     order; ``latency`` is the HPP-Round estimate from Eqs. (4)–(6) on the
     profile the plan was made with (``core.simulator.reprice_plan``
     re-prices it under another profile, e.g. measured).  Consumed by
-    ``core.lowering.lower_plan`` (execution).
+    ``core.lowering.lower_plan`` (execution) and ``core.replay`` (failure
+    recovery).
     """
 
     arch: str
@@ -289,6 +289,22 @@ def _stages_from_steps(steps, P: int) -> tuple[StagePlan, ...]:
                                     kp_policy(P, p)))
             p += 1
     return tuple(stages)
+
+
+def replan_for_membership(profile: Profile, incumbent: Plan,
+                          allowed_stages=None) -> Plan:
+    """Full Algorithm-2 re-plan after a membership change, keeping the
+    incumbent's batch geometry and gradient-sync semantics.
+
+    This is the FTPipeHD-style fallback the membership controller reaches
+    for when incremental candidates (``replay.admission_replay`` /
+    ``replay.departure_replay``) are infeasible: ``profile`` is the
+    cluster *after* the change (see ``profiler.extend_profile`` for
+    joins), and every weight placement is up for grabs."""
+    return plan_hpp(profile, incumbent.global_batch, incumbent.micro_batch,
+                    arch=incumbent.arch, allowed_stages=allowed_stages,
+                    staleness=getattr(incumbent, "staleness", 0),
+                    compress=getattr(incumbent, "compress", None))
 
 
 def auto_microbatch(profile: Profile, global_batch: int,

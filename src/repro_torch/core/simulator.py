@@ -15,8 +15,7 @@ link carries one transfer at a time per direction.
 
 A copy of ``repro.core.simulator`` less its serving half
 (``reprice_serve_plan``, ``serve_prediction_gap``), which needs the serving
-planner, and the gap reports (``prediction_gap``, ``observed_gap``), which
-the session slice reads: later slices of the port.  ``reprice_plan`` refuses a profile
+planner, a later slice of the port.  ``reprice_plan`` refuses a profile
 with fewer devices than the plan names with a ``ValueError`` where
 ``repro``'s copy fails with an ``IndexError`` deep in the pricing.
 """
@@ -281,3 +280,52 @@ def reprice_plan(plan: Plan, profile: Profile) -> Plan:
     lat = hpp_round_latency(tuple(steps), plan.n_micro,
                             getattr(plan, "staleness", 0))
     return dataclasses.replace(plan, steps=tuple(steps), latency=lat)
+
+
+def prediction_gap(plan: Plan, reference: Profile,
+                   policy: str = "ours") -> dict:
+    """Quantify how well ``plan``'s own latency estimate predicts its cost
+    under ``reference`` (typically the *measured* profile).
+
+    Returns a record with the planner's dominant-step estimate
+    (``predicted_s``, Eqs. 4–6 on the profile the plan was made with), the
+    same estimate re-priced on ``reference`` (``reference_s``), the
+    event-accurate simulation of the re-priced plan
+    (``reference_sim_s``), and ``gap_ratio = reference_s / predicted_s`` —
+    the factor by which the planning profile misprices reality.  A plan
+    made *on* the reference profile has gap_ratio 1 by construction; an
+    analytically-planned pipeline evaluated against measured tables shows
+    the error the paper's measured profiler exists to remove.
+    """
+    repriced = reprice_plan(plan, reference)
+    sim = simulate(repriced, reference, policy)
+    return {
+        "reference_source": reference.source,
+        "predicted_s": plan.latency,
+        "reference_s": repriced.latency,
+        "reference_sim_s": sim.makespan,
+        "gap_ratio": (repriced.latency / plan.latency
+                      if plan.latency > 0 else float("inf")),
+    }
+
+
+def observed_gap(plan: Plan, reference: Profile, observed_s: float) -> dict:
+    """``prediction_gap``'s closed-loop sibling: compare a *measured* round
+    latency against the plan re-priced on ``reference``.
+
+    Where ``prediction_gap`` compares two analytic pricings (planning
+    profile vs reference profile), this compares the reference pricing
+    against what the live mesh actually measured — the quantity the
+    portfolio drift watchdog (DESIGN.md §12) tracks.  ``gap_ratio`` is
+    observed/predicted; host wall-seconds and simulated-cluster seconds
+    live on different scales, so consumers should track *drift* of this
+    ratio, not its absolute value.
+    """
+    repriced = reprice_plan(plan, reference)
+    return {
+        "reference_source": reference.source,
+        "predicted_s": repriced.latency,
+        "observed_s": observed_s,
+        "gap_ratio": (observed_s / repriced.latency
+                      if repriced.latency > 0 else float("inf")),
+    }

@@ -125,23 +125,17 @@ def measure_model(cfg, seq_len: int, batch_sizes=(1, 2, 4), repeats: int = 3,
     tf, tb = measure_layer_times(fns, make_input, batch_sizes, repeats)
     elapsed = time.perf_counter() - t0
     tf, tb = tf[None], tb[None]                      # (D, n_batches, L)
-    names = [f"{device.type}:0"]
-    if replicate > 1:
-        tf = np.tile(tf, (replicate, 1, 1))
-        tb = np.tile(tb, (replicate, 1, 1))
-        names = [f"{n}/v{k}" for n in names for k in range(replicate)]
     beta_max = batch_sizes[-1]
-    est = tuple(float(table.flops(0, table.L) * beta_max / max(tf[d, -1].sum(), 1e-12))
-                for d in range(len(names)))
+    est = float(table.flops(0, table.L) * beta_max / max(tf[0, -1].sum(), 1e-12))
     mem = mem_bytes if mem_bytes is not None else _card_mem_bytes(device)
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    return MeasuredProfile(
+    one = MeasuredProfile(
         arch=cfg.name, seq_len=seq_len, batch_sizes=batch_sizes,
         layer_names=tuple(l.name for l in table.layers),
-        tf=tf, tb=tb, device_names=tuple(names),
+        tf=tf, tb=tb, device_names=(f"{device.type}:0",),
         config_hash=config_fingerprint(cfg, seq_len),
         device_hash=device_fingerprint(device),
-        mem_bytes=(float(mem),) * len(names), est_flops=est,
+        mem_bytes=(float(mem),), est_flops=(est,),
         bandwidth=float(bandwidth if bandwidth is not None else MBPS_1000),
         repeats=repeats,
         meta={"torch": torch.__version__,
@@ -150,6 +144,22 @@ def measure_model(cfg, seq_len: int, batch_sizes=(1, 2, 4), repeats: int = 3,
               "device_kind": card,
               "measure_seconds": round(elapsed, 3),
               "created": time.strftime("%Y-%m-%dT%H:%M:%S%z")})
+    return retile(one, replicate) if replicate > 1 else one
+
+
+def retile(mp, replicate: int, mem_bytes: float | None = None):
+    """``mp``'s first device row tiled into ``replicate`` virtual devices
+    (``--replicate``), each with ``mem_bytes`` of memory (default: the
+    row's own).  No layer is timed again: a measured artifact serves a
+    virtual cluster of another size or memory split of the same card."""
+    import numpy as np
+
+    mem = float(mp.mem_bytes[0] if mem_bytes is None else mem_bytes)
+    base = mp.device_names[0].split("/v")[0]
+    return dataclasses.replace(
+        mp, tf=np.tile(mp.tf[:1], (replicate, 1, 1)), tb=np.tile(mp.tb[:1], (replicate, 1, 1)),
+        device_names=tuple(f"{base}/v{k}" for k in range(replicate)),
+        mem_bytes=(mem,) * replicate, est_flops=(mp.est_flops[0],) * replicate)
 
 
 def main(argv=None) -> str:

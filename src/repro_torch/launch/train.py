@@ -6,8 +6,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --plan --profile prof.json \\
         --devices 4 --global-batch 8 --n-micro 4 --compress int8 \\
         --bucket-mb 256 --no-error-feedback --steps 4             # planned, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --plan --profile prof.json \\
+        --devices 6 --global-batch 8 --n-micro 4 --compress int8 --staleness 1 \\
+        --fail-at 3 --fail-rank 2 --backup-every 2 --steps 5  # prof.json: 3 x 36 GB
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --stage 2 --steps 2 --compress int8
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --plan --devices 2 --fail-at 2 --steps 4                  # the session on the CPU
 
 The port of ``repro.launch.train``.  Without ``--plan``: ``build_train_step``
 with ``--stage`` virtual stages and ``--n-micro`` micro-batches.  With
@@ -31,9 +36,20 @@ N / stages is a label, the math being unsharded.  ``repro`` puts a data axis of
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it stops
 rather than running on the CPU.
 
-Not ported yet, and refused: ``--staleness 1`` and ``--double-buffer``,
-``--portfolio``, ``--events``/``--fail-at`` (the session layer), and
-``--checkpoint-dir``.
+``--staleness 1`` runs the bounded-stale step (``runtime.train``: round r's
+update applied at the r+1 boundary, the end of training a flush) and
+``--double-buffer`` (on by default at staleness 1) the boundary round trips
+on a second stream, on either path.  ``--events`` (or ``--fail-at`` /
+``--fail-rank``) with ``--plan`` trains through a live
+``runtime.session.PipelineSession``: fail / join / drain / evict events at
+given steps, stage backups every ``--backup-every`` steps, the replay
+recovering without a restart; it prints ``repro``'s ``recovered (...)``,
+``FINAL sim_tok_s=`` and ``FINAL tok_s=`` lines.  ``--checkpoint-dir``
+saves the final parameters (``checkpoint.save``, ``repro``'s format).
+
+Not ported yet, and refused by name: ``--portfolio``,
+``--probation-rounds`` and ``--drift-threshold`` (the portfolio half of
+the session layer).
 """
 
 from __future__ import annotations
@@ -46,11 +62,10 @@ import torch
 #: flags of ``repro.launch.train`` that need a later slice of the port
 _LATER = {
     "portfolio": "--portfolio probes planner Plans in a live session "
-                 "(PipelineSession), a later slice of the port",
-    "events": "--events/--fail-at need PipelineSession (membership), a later slice of the port",
-    "fail_at": "--events/--fail-at need PipelineSession (membership), a later slice of the port",
-    "double_buffer": "--double-buffer (overlapped sends) is a later slice of the port",
-    "checkpoint_dir": "--checkpoint-dir needs checkpoint/, a later slice of the port",
+                 "(the portfolio half of PipelineSession), a later slice of the port",
+    "probation_rounds": "--probation-rounds belongs to --portfolio, a later slice of the port",
+    "drift_threshold": "--drift-threshold arms the portfolio's drift watchdog, "
+                       "a later slice of the port",
 }
 _MAX_DEVICES = 7       # repro's data axis max(1, N // 4) stays 1 below 8
 
@@ -107,23 +122,50 @@ def _parse(argv):
                          "analytic model with a warning if it is stale")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
-    # repro's flags that belong to later slices: accepted by the parser so
+    ap.add_argument("--staleness", type=int, default=0, choices=(0, 1),
+                    help="gradient staleness bound: 0 = synchronous rounds, 1 = "
+                         "round r's update is applied at the r+1 boundary")
+    ap.add_argument("--double-buffer", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="boundary round trips on a second stream; default: on "
+                         "when --staleness 1")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the final parameters there (repro's format)")
+    ap.add_argument("--events", default=None, metavar="SCHEDULE",
+                    help="membership event schedule, comma-separated "
+                         "'kind@step[:arg]' entries, e.g. 'join@40:a100,drain@80:2'. "
+                         "Kinds: fail/drain/evict take a cluster rank (default: "
+                         "last stage's lead device); join takes a device preset "
+                         "(nano/tx2/nx/a100/v5e, default nx), a device-spec JSON "
+                         "file ({name, mem_bytes, flops, ...}), or a "
+                         "launch.profile artifact of the joining device. "
+                         "Requires --plan")
+    ap.add_argument("--hysteresis", type=float, default=None,
+                    help="admission hysteresis margin for join events "
+                         "(default: replay.ADMISSION_HYSTERESIS)")
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="sugar for --events 'fail@STEP[:--fail-rank]' (requires --plan)")
+    ap.add_argument("--fail-rank", type=int, default=None,
+                    help="cluster rank to kill (default: last stage's lead device)")
+    ap.add_argument("--backup-every", type=int, default=5,
+                    help="stage-replication cadence in steps (with --events)")
+    # repro's flags that belong to a later slice: accepted by the parser so
     # they can be refused by name
     ap.add_argument("--portfolio", type=int, default=0, help="not ported yet")
-    ap.add_argument("--events", default=None, help="not ported yet")
-    ap.add_argument("--fail-at", type=int, default=None, help="not ported yet")
-    ap.add_argument("--staleness", type=int, default=0, choices=(0, 1),
-                    help="only 0 is ported")
-    ap.add_argument("--double-buffer", action=argparse.BooleanOptionalAction,
-                    default=None, help="not ported yet")
-    ap.add_argument("--checkpoint-dir", default=None, help="not ported yet")
+    ap.add_argument("--probation-rounds", type=int, default=None, help="not ported yet")
+    ap.add_argument("--drift-threshold", type=float, default=None, help="not ported yet")
     args = ap.parse_args(argv)
     for flag, why in _LATER.items():
         if getattr(args, flag) not in (None, False, 0):
             raise SystemExit(why)
-    if args.staleness:
-        raise SystemExit("--staleness 1 (bounded-stale async steps) is a later "
-                         "slice of the port")
+    args.events = _parse_events(args.events)
+    if args.fail_at is not None:     # the old flags, kept as sugar
+        arg = "" if args.fail_rank is None else str(args.fail_rank)
+        args.events.append((args.fail_at, "fail", arg))
+    args.events.sort(key=lambda e: e[0])
+    if args.events and not args.plan:
+        raise SystemExit("--events/--fail-at require --plan (the membership "
+                         "session recovers by re-lowering a planner Plan)")
     if args.devices > _MAX_DEVICES:
         raise SystemExit(f"--devices {args.devices}: repro's data axis would be "
                          f"{args.devices // 4}; real data parallelism across "
@@ -151,10 +193,12 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None, after_step=None) -> dict:
+def main(argv=None, after_step=None, on_session=None) -> dict:
     """Run the launcher.  ``after_step(step, ts, params, batch)``, when
-    given, runs after each step, before the step's timing mark.  Returns the
-    per-step losses, the timing, the step and the final state."""
+    given, runs after each step, before the step's timing mark;
+    ``on_session(session)`` runs once the membership session is built.
+    Returns the per-step losses, the timing, the step and the final state
+    (and the session, on the ``--events`` path)."""
     args = _parse(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -204,12 +248,26 @@ def main(argv=None, after_step=None) -> dict:
         from repro_torch.core.lowering import plan_to_train_step
         # the runtime executes whatever the (possibly 'auto') plan chose
         run_compress = plan.compress.fmt if plan.compress else "none"
+        spec_kw = dict(compress=run_compress, quant_tile=args.quant_tile,
+                       bucket_mb=args.bucket_mb, error_feedback=args.error_feedback,
+                       staleness=args.staleness, double_buffer=args.double_buffer)
+        if args.events:
+            from repro_torch.runtime.session import PipelineSession
+            session = PipelineSession(cfg, model_axis, plan, prof, optimizer=opt,
+                                      backup_every=args.backup_every, device=device,
+                                      **spec_kw)
+            lowered = session.lowered
+            print(f"asteroid plan: {lowered.stage} stages periods="
+                  f"{lowered.stage_periods} M={lowered.n_micro} "
+                  f"K_p={lowered.warmup} predicted latency {plan.latency:.3f}s")
+            _print_spec(session.ts.spec)
+            if on_session is not None:
+                on_session(session)
+            res = _run_session(session, cfg, args, device, after_step)
+            res.update(device=dev_name, plan=plan, profile=prof)
+            return res
         ts, lowered = plan_to_train_step(plan, prof, cfg, model_axis, optimizer=opt,
-                                         compress=run_compress,
-                                         quant_tile=args.quant_tile,
-                                         bucket_mb=args.bucket_mb,
-                                         error_feedback=args.error_feedback,
-                                         device=device)
+                                         device=device, **spec_kw)
         print(f"asteroid plan: {lowered.stage} stages periods="
               f"{lowered.stage_periods} M={lowered.n_micro} "
               f"K_p={lowered.warmup} alloc={lowered.micro_alloc} "
@@ -218,27 +276,34 @@ def main(argv=None, after_step=None) -> dict:
         ts = build_train_step(cfg, global_batch=args.global_batch, stage=args.stage,
                               n_micro=args.n_micro, optimizer=opt, compress=args.compress,
                               quant_tile=args.quant_tile, bucket_mb=args.bucket_mb,
-                              error_feedback=args.error_feedback, device=device)
+                              error_feedback=args.error_feedback, staleness=args.staleness,
+                              double_buffer=args.double_buffer, device=device)
     spec = ts.spec
-    print(f"plan: stage={spec.plan.stage} tp={spec.plan.tp} M={spec.n_micro} "
-          f"shard_alloc=uniform staleness=0 double_buffer=False "
-          f"compress={spec.compress}"
-          + (f" bucket_mb={spec.bucket_mb:g}" if spec.bucket_mb else "")
-          + (" ef" if spec.bucketed and spec.compress != "none"
-             and spec.error_feedback else ""))
+    _print_spec(spec)
 
     params, opt_state = init_train_state(0, ts, opt)
     ds = SyntheticLM(cfg.vocab_size, args.seq)
     bucketed = spec.bucketed
     ef = ts.init_ef() if bucketed else None
+    held = None
     losses: list[float] = []
+    # steady state starts after the warm-up round(s): the first step, and
+    # at staleness 1 also the first full round (round 0 takes gradients only)
+    n_warm = 2 if spec.staleness >= 1 else 1
     _sync(device)
     t0 = time.perf_counter()
     t_warm = None
     loss = float("nan")
     for step in range(args.steps):
         batch = ts.shard_batch(ds.batch(step, args.global_batch))
-        if bucketed:
+        if spec.staleness >= 1:
+            if bucketed:
+                params, opt_state, held, ef, loss_t, metrics = ts.async_step_fn(
+                    params, opt_state, held, ef, batch)
+            else:
+                params, opt_state, held, loss_t, metrics = ts.async_step_fn(
+                    params, opt_state, held, batch)
+        elif bucketed:
             params, opt_state, ef, loss_t, metrics = ts.step_fn(params, opt_state, ef, batch)
         else:
             params, opt_state, loss_t, metrics = ts.step_fn(params, opt_state, batch)
@@ -246,9 +311,9 @@ def main(argv=None, after_step=None) -> dict:
         losses.append(loss)
         if after_step is not None:
             after_step(step, ts, params, batch)
-        if step == 0 and args.steps > 1:
+        if step == n_warm - 1 and args.steps > n_warm:
             _sync(device)
-            t_warm = time.perf_counter()           # step 0 is warm-up: excluded from FINAL
+            t_warm = time.perf_counter()           # warm-up excluded from FINAL
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.perf_counter() - t0
             tput = args.global_batch * args.seq * (step + 1) / dt
@@ -256,18 +321,191 @@ def main(argv=None, after_step=None) -> dict:
                   f"ce {float(metrics['ce']):.4f} tok/s {tput:,.0f}")
     _sync(device)
     t_end = time.perf_counter()
-    tokens = args.global_batch * args.seq
-    if t_warm is not None:
-        timed, seconds = args.steps - 1, t_end - t_warm
-    else:
-        timed, seconds = args.steps, t_end - t0
-    steady = tokens * timed / max(seconds, 1e-9)
+    if held is not None:                           # staleness barrier: the last round
+        params, opt_state = ts.flush_fn(params, opt_state, held)
+        _sync(device)
+    timed, seconds, steady = _steady(args, n_warm, t0, t_warm, t_end)
+    _save_checkpoint(args, params)
     print(f"FINAL tok_s={steady:.1f} loss={loss:.4f}")
     print("done")
     return {"losses": losses, "tok_s": steady, "timed_steps": timed,
             "seconds": seconds, "ts": ts, "params": params, "opt_state": opt_state,
             "ef": ef, "device": dev_name, "plan": plan, "lowered": lowered,
             "profile": prof}
+
+
+def _print_spec(spec) -> None:
+    print(f"plan: stage={spec.plan.stage} tp={spec.plan.tp} M={spec.n_micro} "
+          f"shard_alloc=uniform staleness={spec.staleness} "
+          f"double_buffer={spec.double_buffer} compress={spec.compress}"
+          + (f" bucket_mb={spec.bucket_mb:g}" if spec.bucket_mb else "")
+          + (" ef" if spec.bucketed and spec.compress != "none"
+             and spec.error_feedback else ""))
+
+
+def _steady(args, n_warm: int, t0: float, t_warm, t_end: float):
+    """``(timed steps, seconds, tok/s)`` of the steps after the warm-up
+    (over the whole run when no step followed it); shared by both paths."""
+    if t_warm is not None:
+        timed, seconds = args.steps - n_warm, t_end - t_warm
+    else:
+        timed, seconds = args.steps, t_end - t0
+    return timed, seconds, args.global_batch * args.seq * timed / max(seconds, 1e-9)
+
+
+def _save_checkpoint(args, params) -> None:
+    if args.checkpoint_dir:
+        from repro_torch import checkpoint
+        checkpoint.save(args.checkpoint_dir, "final", params)
+        print(f"checkpoint saved to {args.checkpoint_dir}")
+
+
+def _parse_events(spec: str | None) -> list:
+    """Parse a ``--events`` schedule into ``(step, kind, arg)`` triples."""
+    events = []
+    if not spec:
+        return events
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        head, _, arg = entry.partition(":")
+        kind, at, step = head.partition("@")
+        kind = kind.strip().lower()
+        if kind not in ("fail", "join", "drain", "evict") or not at:
+            raise SystemExit(f"--events entry {entry!r} is not 'kind@step[:arg]' "
+                             "with kind in fail/join/drain/evict")
+        try:
+            events.append((int(step), kind, arg.strip()))
+        except ValueError:
+            raise SystemExit(f"--events entry {entry!r}: step {step!r} is not an integer")
+    return events
+
+
+def _resolve_join(arg: str):
+    """A join event's argument -> ``(device, arrival_sweep)``: a preset name
+    or device-spec JSON prices the newcomer analytically; a
+    ``launch.profile`` artifact supplies its measured on-arrival sweep."""
+    import json
+
+    from repro_torch.core.hardware import (A100, JETSON_NANO, JETSON_NX, JETSON_TX2,
+                                           TPU_V5E, DeviceProfile)
+    presets = {"nano": JETSON_NANO, "tx2": JETSON_TX2, "nx": JETSON_NX,
+               "a100": A100, "v5e": TPU_V5E}
+    if not arg:
+        return JETSON_NX, None
+    if arg.lower() in presets:
+        return presets[arg.lower()], None
+    with open(arg) as f:
+        doc = json.load(f)
+    if "batch_sizes" in doc and "tf" in doc:     # a measured sweep artifact
+        from repro_torch.core.profiler import load_profile
+        return None, load_profile(arg)
+    try:
+        dev = DeviceProfile(name=doc.get("name", "custom"),
+                            mem_bytes=float(doc["mem_bytes"]), flops=float(doc["flops"]),
+                            **{k: doc[k] for k in ("sat_batch", "sat_flops", "overhead")
+                               if k in doc})
+    except KeyError as e:
+        raise SystemExit(f"join device spec {arg} is missing {e} (need at least "
+                         "name/mem_bytes/flops, or pass a launch.profile artifact)")
+    return dev, None
+
+
+def _apply_event(session, kind: str, arg: str, args) -> None:
+    """Fire one membership event on the live session and report it."""
+    from repro_torch.core.replay import ADMISSION_HYSTERESIS
+
+    if kind == "join":
+        device, arrival = _resolve_join(arg)
+        out = session.admit(device, arrival=arrival,
+                            hysteresis=(args.hysteresis if args.hysteresis is not None
+                                        else ADMISSION_HYSTERESIS))
+        dec = out.decision
+        if not out.accepted:
+            print(f"  join rejected ({dec.reason})")
+            return
+        rep = out.report
+        print(f"  joined ({dec.reason}): replan {rep.replan_s * 1e3:.1f}ms "
+              f"migrate {rep.migration_s:.2f}s replicate {rep.replicate_s:.2f}s | "
+              f"{dec.incumbent_latency:.3f}s -> {dec.candidate_latency:.3f}s/round | "
+              f"new stages {[(st.layers, st.group) for st in session.plan.stages]}")
+        return
+    rank = int(arg) if arg else session.plan.stages[-1].group[0]
+    if kind == "fail":
+        print(f"  killing rank {rank}")
+        session.fail(rank)      # detected and recovered inside the next step
+        return
+    out = session.drain(rank) if kind == "drain" else session.evict(rank)
+    rep = out.report
+    print(f"  {kind} rank {rank} ({out.mode}{', overlapped' if rep.overlapped else ''}): "
+          f"replan {rep.replan_s * 1e3:.1f}ms migrate {rep.migration_s:.2f}s "
+          f"stall {out.stall_s:.3f}s | new stages "
+          f"{[(st.layers, st.group) for st in session.plan.stages]}")
+
+
+def _run_session(session, cfg, args, device, after_step=None) -> dict:
+    """Drive a live membership session: train through the scheduled
+    join/drain/evict/fail events without restarting."""
+    from repro_torch.data import SyntheticLM
+
+    session.init(0)
+    ds = SyntheticLM(cfg.vocab_size, args.seq)
+    loss = float("nan")
+    losses: list[float] = []
+    seen_recoveries = 0
+    pending = list(args.events)
+    sim_busy = 0.0          # cluster round time under the deployed plan
+    n_warm = 2 if session.ts.spec.staleness >= 1 else 1
+    _sync(device)
+    t0 = time.perf_counter()
+    t_warm = None
+    for step in range(args.steps):
+        while pending and pending[0][0] <= step:
+            _, kind, arg = pending.pop(0)
+            print(f"step {step}: {kind} event")
+            _apply_event(session, kind, arg, args)
+        batch_np = ds.batch(step, args.global_batch)
+        loss, metrics = session.step(batch_np)
+        losses.append(loss)
+        sim_busy += session.plan.latency
+        if after_step is not None:
+            after_step(step, session.ts, session.params, batch_np)
+        if step == n_warm - 1 and args.steps > n_warm:
+            _sync(device)
+            t_warm = time.perf_counter()
+        if len(session.recoveries) > seen_recoveries:
+            seen_recoveries = len(session.recoveries)
+            out = session.recoveries[-1]
+            rep = out.report
+            print(f"  recovered ({out.mode}): detect {rep.detection_s:.2f}s "
+                  f"replan {rep.replan_s * 1e3:.1f}ms migrate {rep.migration_s:.2f}s "
+                  f"restore {rep.restore_s:.2f}s | moved periods "
+                  f"{out.migration.moved_periods} restored {out.restored_periods} | "
+                  f"new stages {[(st.layers, st.group) for st in session.plan.stages]}")
+        if step % args.log_every == 0 or step == args.steps - 1:
+            dt = time.perf_counter() - t0
+            tput = args.global_batch * args.seq * (step + 1) / dt
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"ce {float(metrics['ce']):.4f} tok/s {tput:,.0f}")
+    _sync(device)
+    t_end = time.perf_counter()
+    session.flush_gradients()       # staleness barrier at the end of training
+    _sync(device)
+    _save_checkpoint(args, session.params)
+    timed, seconds, tput = _steady(args, n_warm, t0, t_warm, t_end)
+    # throughput on the simulated cluster clock: the round latency of the
+    # plan deployed at each step, plus the stall every transition charged
+    stalls = sum(o.stall_s for o in session.memberships)
+    sim_tput = args.global_batch * args.seq * args.steps / max(sim_busy + stalls, 1e-9)
+    print(f"FINAL sim_tok_s={sim_tput:.1f} (rounds {sim_busy:.2f}s + "
+          f"membership stalls {stalls:.3f}s)")
+    print(f"FINAL tok_s={tput:.1f} loss={loss:.4f}")
+    print("done")
+    return {"losses": losses, "tok_s": tput, "sim_tok_s": sim_tput, "timed_steps": timed,
+            "seconds": seconds, "session": session, "ts": session.ts,
+            "params": session.params, "opt_state": session.opt_state,
+            "lowered": session.lowered}
 
 
 def _plan(args, cfg, measured, model_axis: int, device):

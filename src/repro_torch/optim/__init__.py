@@ -8,6 +8,14 @@ returns ``(params, state)`` so the call sites read as ``repro``'s.  The
 arithmetic is ``repro``'s, op for op, with the bias corrections and the
 learning rate computed as float32 tensors from the step counter (as
 ``step.astype(jnp.float32)`` does).
+
+Each ``update`` is the composition of two halves, for the bounded-stale
+step (``runtime.train``, staleness 1): ``take_grads`` takes the gradients
+in (clip, moments, step counter, bias corrections, learning rate) and
+returns a :class:`HeldUpdate`; ``apply_held`` applies it to the
+parameters.  Only the second half reads the parameters, so a round's
+gradients can be taken in as soon as they exist and the parameter half
+deferred, with no second gradient tree held.
 """
 
 from __future__ import annotations
@@ -37,6 +45,23 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+class HeldUpdate(NamedTuple):
+    """The scalars of one update whose parameter half is still to apply;
+    the moments it reads are the optimizer state's own."""
+
+    lr: torch.Tensor | float
+    bc1: torch.Tensor | None = None     # AdamW's bias corrections
+    bc2: torch.Tensor | None = None
+
+
+def _clip(grads, grad_clip) -> None:
+    if grad_clip is not None:
+        gnorm = global_norm(grads)
+        scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+        for g in tree_leaves(grads):
+            g.mul_(scale)
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor          # 0-d int32, on the parameters' device
     m: dict
@@ -64,35 +89,42 @@ class AdamW:
         return self.lr(step) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
-        """One step.  ``params``, ``state.m``/``state.v`` and (when clipping)
-        ``grads`` are updated in place; returns ``(params, new_state)``."""
+    def take_grads(self, grads, state: AdamWState):
+        """The gradient half: clip ``grads`` (in place), fold them into
+        ``state.m``/``state.v`` (in place) and advance the step.  Returns
+        ``(new_state, held)``."""
         step = state.step + 1
-        if self.grad_clip is not None:
-            gnorm = global_norm(grads)
-            scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            for g in tree_leaves(grads):
-                g.mul_(scale)
+        _clip(grads, self.grad_clip)
         b1, b2 = self.b1, self.b2
-        stepf = step.to(torch.float32)
-        bc1 = 1 - b1 ** stepf
-        bc2 = 1 - b2 ** stepf
-        lr = self._lr(step)
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state.m), tree_leaves(state.v)):
+        for g, m, v in zip(tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v)):
             g = g.to(m.dtype)
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
             del g
-            u = m / bc1
-            den = (v / bc2).sqrt_().add_(self.eps)
+        stepf = step.to(torch.float32)
+        held = HeldUpdate(self._lr(step), 1 - b1 ** stepf, 1 - b2 ** stepf)
+        return AdamWState(step, state.m, state.v), held
+
+    @torch.no_grad()
+    def apply_held(self, held: HeldUpdate, state: AdamWState, params):
+        """The parameter half: ``params`` (in place) by the moments of
+        ``state`` and the scalars of ``held``.  Returns ``params``."""
+        for p, m, v in zip(tree_leaves(params), tree_leaves(state.m), tree_leaves(state.v)):
+            u = m / held.bc1
+            den = (v / held.bc2).sqrt_().add_(self.eps)
             u.div_(den)
             del den
             if self.weight_decay:
                 u.add_(self.weight_decay * p.float())
-            p.sub_(u.mul_(lr))
+            p.sub_(u.mul_(held.lr))
             del u            # before the next leaf's temporaries are made
-        return params, AdamWState(step, state.m, state.v)
+        return params
+
+    def update(self, grads, state: AdamWState, params):
+        """One step.  ``params``, ``state.m``/``state.v`` and (when clipping)
+        ``grads`` are updated in place; returns ``(params, new_state)``."""
+        state, held = self.take_grads(grads, state)
+        return self.apply_held(held, state, params), state
 
 
 class SGDState(NamedTuple):
@@ -113,19 +145,23 @@ class SGD:
                                                        device=p.device), params))
 
     @torch.no_grad()
-    def update(self, grads, state: SGDState, params):
+    def take_grads(self, grads, state: SGDState):
         step = state.step + 1
-        if self.grad_clip is not None:
-            gnorm = global_norm(grads)
-            scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            for g in tree_leaves(grads):
-                g.mul_(scale)
-        lr = self.lr(step) if callable(self.lr) else self.lr
-        for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
-                           tree_leaves(state.mom)):
+        _clip(grads, self.grad_clip)
+        for g, m in zip(tree_leaves(grads), tree_leaves(state.mom)):
             m.mul_(self.momentum).add_(g.float())
-            p.sub_(m * lr)
-        return params, SGDState(step, state.mom)
+        lr = self.lr(step) if callable(self.lr) else self.lr
+        return SGDState(step, state.mom), HeldUpdate(lr)
+
+    @torch.no_grad()
+    def apply_held(self, held: HeldUpdate, state: SGDState, params):
+        for p, m in zip(tree_leaves(params), tree_leaves(state.mom)):
+            p.sub_(m * held.lr)
+        return params
+
+    def update(self, grads, state: SGDState, params):
+        state, held = self.take_grads(grads, state)
+        return self.apply_held(held, state, params), state
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -32,13 +32,30 @@ the one card:
   in ``repro``; the backward is the same round trip on the cotangent (the
   transpose ``repro`` routes through the inverse permutation).  M (P - 1)
   hops forward and as many backward per step.
+* **Double buffering** (``double_buffer``, ``repro``'s 2-tick stage hop).
+  ``repro`` moves the ``ppermute`` of micro-batch m onto XLA's comm stream
+  while m+1 computes.  On one card the hop is the compressed boundary's
+  round trip, and it goes on a second CUDA stream: the side stream waits
+  for the stage output, runs the quantize and dequantize kernels, records
+  an event, and the next stage's main-stream compute waits for that event
+  only where it reads the value.  Autograd runs each backward op on its
+  forward op's stream, so the cotangent's round trip goes on the side
+  stream too, ordered by the engine's own events.  Tensors that cross
+  streams carry ``record_stream``.  The stages run in the synchronous
+  pipeline's tick order (``repro``'s 2-tick hop would record the forwards
+  in another order, and autograd adds each micro-batch's period gradients
+  into the bound ``.grad`` buffers in the reverse of that order), so every
+  value and every gradient is bit for bit the synchronous pipeline's; only
+  the stream a round trip runs on moves.  An uncompressed boundary moves
+  nothing on one card, so there the flag changes nothing, as it does on
+  the CPU.
 * **Loss.**  ``repro`` redistributes the last stage's outputs so each stage
   computes the head and cross entropy on M / P micro-batches, then sums
   over stages; on one card the head runs once over all M.  The sums are the
   same up to float reassociation.
 
-Tensor parallelism, vocab padding, heterogeneous per-shard allocations and
-the double-buffered sends are not ported yet.
+Tensor parallelism, vocab padding and heterogeneous per-shard allocations
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -113,14 +130,31 @@ def stage_ranges(n_periods: int, n_stages: int):
                  for p in range(n_stages))
 
 
+#: one side stream per card, for the process: the caching allocator keeps a
+#: pool of blocks per stream, so a new stream per step would strand its
+#: blocks in a fresh pool each time
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(x, compress: str, P: int, double_buffer: bool):
+    """The stream a double-buffered boundary round trip runs on, or None
+    (synchronous: no boundary wire, one stage, or CPU tensors)."""
+    if not double_buffer or compress == "none" or P == 1 or x.device.type != "cuda":
+        return None
+    if x.device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[x.device] = torch.cuda.Stream(x.device)
+    return _SIDE_STREAMS[x.device]
+
+
 def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
                    ranges, remat: bool = True, compress: str = "none",
-                   quant_tile: int = 256):
-    """Run M micro-batches through P virtual stages (synchronous pipeline).
+                   quant_tile: int = 256, double_buffer: bool = False):
+    """Run M micro-batches through P virtual stages.
 
     period_params: list of per-period param trees; stage p owns the rows
     ``ranges[p]`` = ``[i_p, j_p)``.  x_micro: (M, mb, S, D).  Returns outs
-    (M, mb, S, D).
+    (M, mb, S, D).  ``double_buffer`` runs each boundary round trip on a
+    second stream (module docstring); the values are the same.
     """
     M, P = x_micro.shape[0], len(ranges)
     if compress != "none" and P > 1:
@@ -129,19 +163,40 @@ def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
     else:
         def boundary(x):
             return x
+    side = _side_stream(x_micro, compress, P, double_buffer)
 
-    inflight: dict[int, torch.Tensor] = {}        # micro-batch -> input of its next stage
+    def send(x):
+        """The hop of one stage output: (value, event it is ready at)."""
+        if side is None:
+            return boundary(x), None
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            y = boundary(x)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        x.record_stream(side)
+        return y, ready
+
+    def arrive(hop):
+        y, ready = hop
+        if ready is not None:
+            main = torch.cuda.current_stream(y.device)
+            main.wait_event(ready)
+            y.record_stream(main)
+        return y
+
+    inflight: dict[int, tuple] = {}               # micro-batch -> its hop to the next stage
     outs: list = [None] * M
     for t in range(scan_ticks(P, M)):
         for p in range(P):
             m = t - p
             if not 0 <= m < M:
                 continue                         # bubble tick: nothing to compute
-            inp = x_micro[m] if p == 0 else inflight.pop(m)
+            inp = x_micro[m] if p == 0 else arrive(inflight.pop(m))
             i, j = ranges[p]
             out = _stage_fn(period_params[i:j], inp, positions, cfg, remat)
             if p < P - 1:
-                inflight[m] = boundary(out)
+                inflight[m] = send(out)
             else:
                 outs[m] = out
     return torch.stack(outs)
@@ -172,6 +227,11 @@ class TrainSpec:
     bucket_mb: float | None = None
     # carry the per-bucket quantization residual across steps
     error_feedback: bool = True
+    # 1 = round r's update is applied at the r+1 boundary (runtime.train's
+    # async_step_fn); the loss and gradient functions do not read it
+    staleness: int = 0
+    # boundary round trips on a second stream (pipeline_apply)
+    double_buffer: bool = False
 
     @property
     def ranges(self) -> tuple:
@@ -214,7 +274,8 @@ def spmd_loss_fn(spec: TrainSpec):
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(mb, S)
         periods = period_list(params["periods"])
         outs = pipeline_apply(periods, x.reshape(M, mb, S, cfg.d_model), positions,
-                              cfg, spec.ranges, spec.remat, spec.compress, spec.quant_tile)
+                              cfg, spec.ranges, spec.remat, spec.compress, spec.quant_tile,
+                              spec.double_buffer)
         h = rmsnorm(params["final_norm"], outs.reshape(B, S, cfg.d_model),
                     cfg.norm_eps, cfg.zero_centered_norm)
         tgt = tokens[:, 1:]

@@ -36,7 +36,28 @@ The step functions keep ``repro``'s arities:
   ``step_fn(params, opt_state, ef, batch) -> (params, opt_state, ef, loss,
   metrics)``, with ``init_ef()`` the zero residual tree (``{}`` when error
   feedback is off);
-* ``loss_fn(params, batch) -> (loss, metrics)`` without a gradient.
+* ``loss_fn(params, batch) -> (loss, metrics)`` without a gradient;
+* staleness 1 (``spec.staleness``): ``async_step_fn(params, opt_state,
+  held, batch) -> (params, opt_state, held, loss, metrics)`` (bucketed:
+  ``(params, opt_state, held, ef, batch) -> (params, opt_state, held, ef,
+  loss, metrics)``) and ``flush_fn(params, opt_state, held) -> (params,
+  opt_state)``.
+
+**Staleness 1.**  ``repro``'s bounded-stale step keeps round r-1's
+gradients (``grad_buf``) and applies them with ``optimizer.update`` after
+taking round r's at the old parameters.  Here that buffer would be another
+copy of every gradient (15.3 GB at fp32 phi3-mini, beside a 67.6 GB step
+peak), so the update is split (``optim``): round r takes its gradients at
+p_r, applies the parameter half of round r-1's update (a ``HeldUpdate``),
+then takes round r's gradients into the moments and the step counter and
+holds the parameter half.  The arithmetic and its order are ``repro``'s
+``update(grad_buf, ...)`` exactly; what differs is the state held between
+rounds: the moments and the step already include round r-1.  The first
+round has nothing held (``held=None``): it takes gradients only, as
+``repro``'s first round calls ``grad_fn`` alone, so the update count and
+the schedule equal the synchronous run's.  ``flush_fn`` applies what is
+held: the end of training, and every swap of the step (a staleness
+barrier).
 
 Parameters and optimizer state are updated in place (see ``repro_torch.optim``).
 """
@@ -81,10 +102,26 @@ class TrainStep:
     init_ef: object = None
     # [(free_axes, leaf_indices, sizes), ...] in tree_leaves order (bucketed only)
     buckets: tuple = ()
+    # staleness 1 only (module docstring)
+    async_step_fn: object = None
+    flush_fn: object = None
 
     def shard_batch(self, batch_np: dict) -> dict:
         """Put a host (numpy) batch on the card."""
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch_np.items()}
+
+
+def _check_staleness(staleness: int) -> int:
+    if staleness not in (0, 1):
+        raise ValueError(f"staleness must be 0 (sync) or 1 (bounded-stale "
+                         f"async), got {staleness}")
+    return staleness
+
+
+def _default_double_buffer(double_buffer: bool | None, staleness: int) -> bool:
+    """The async runtime double-buffers by default; the sync runtime keeps
+    the serialized sends unless asked."""
+    return staleness >= 1 if double_buffer is None else bool(double_buffer)
 
 
 def _check_compress(compress: str | None) -> str:
@@ -234,6 +271,7 @@ def build_train_step(cfg: ModelConfig, global_batch: int, *, stage: int | None =
                      remat: bool = True, ce_chunk: int = 1024,
                      compress: str = "none", quant_tile: int = 256,
                      bucket_mb: float | None = None, error_feedback: bool = True,
+                     staleness: int = 0, double_buffer: bool | None = None,
                      device="cuda") -> TrainStep:
     """The one-card train step for ``stage`` virtual stages (default: the
     stage count ``repro`` would pick on one device, i.e. 1), each owning its
@@ -251,7 +289,9 @@ def build_train_step(cfg: ModelConfig, global_batch: int, *, stage: int | None =
     spec = TrainSpec(cfg=cfg, plan=plan, n_micro=n_micro, remat=remat,
                      ce_chunk=ce_chunk,
                      compress=_check_compress(compress), quant_tile=int(quant_tile),
-                     bucket_mb=bucket_mb, error_feedback=bool(error_feedback))
+                     bucket_mb=bucket_mb, error_feedback=bool(error_feedback),
+                     staleness=_check_staleness(staleness),
+                     double_buffer=_default_double_buffer(double_buffer, staleness))
     return _assemble_train_step(spec, optimizer, device)
 
 
@@ -292,7 +332,8 @@ def train_spec_from_lowered(cfg: ModelConfig, model_axis: int, lowered, *,
                             remat: bool = True, ce_chunk: int = 1024,
                             compress: str = "none", quant_tile: int = 256,
                             bucket_mb: float | None = None,
-                            error_feedback: bool = True) -> TrainSpec:
+                            error_feedback: bool = True, staleness: int = 0,
+                            double_buffer: bool | None = None) -> TrainSpec:
     """Derive the static step configuration from a ``core.lowering``
     ``LoweredPlan`` (duck-typed: ``stage``/``n_micro``/``stage_periods``/
     ``global_batch``/``micro_alloc`` attributes) for a virtual model axis
@@ -320,7 +361,9 @@ def train_spec_from_lowered(cfg: ModelConfig, model_axis: int, lowered, *,
     return TrainSpec(cfg=cfg, plan=plan, n_micro=lowered.n_micro, remat=remat,
                      ce_chunk=ce_chunk, stage_periods=stage_periods,
                      compress=_check_compress(compress), quant_tile=int(quant_tile),
-                     bucket_mb=bucket_mb, error_feedback=bool(error_feedback))
+                     bucket_mb=bucket_mb, error_feedback=bool(error_feedback),
+                     staleness=_check_staleness(staleness),
+                     double_buffer=_default_double_buffer(double_buffer, staleness))
 
 
 def build_train_step_from_lowered(cfg: ModelConfig, model_axis: int, lowered, *,
@@ -342,6 +385,18 @@ def _assemble_train_step(spec: TrainSpec, optimizer: AdamW | None,
     def loss_fn(params, batch):
         return spmd(params, batch)
 
+    def take(grads, opt_state, params, held):
+        """Staleness 1: the held parameter half, then this round's
+        gradients into the optimizer state (module docstring)."""
+        if held is not None:
+            params = optimizer.apply_held(held, opt_state, params)
+        opt_state, held = optimizer.take_grads(grads, opt_state)
+        return params, opt_state, held
+
+    def flush_fn(params, opt_state, held):
+        return optimizer.apply_held(held, opt_state, params), opt_state
+
+    stale = spec.staleness >= 1
     if not spec.bucketed:
         def grad_fn(params, batch):
             return value_and_grad(spmd, params, batch)
@@ -351,8 +406,14 @@ def _assemble_train_step(spec: TrainSpec, optimizer: AdamW | None,
             params, opt_state = optimizer.update(grads, opt_state, params)
             return params, opt_state, loss, metrics
 
+        def async_step_fn(params, opt_state, held, batch):
+            (loss, metrics), grads = grad_fn(params, batch)
+            params, opt_state, held = take(grads, opt_state, params, held)
+            return params, opt_state, held, loss, metrics
+
         return TrainStep(spec=spec, device=device, step_fn=step_fn, loss_fn=loss_fn,
-                         grad_fn=grad_fn)
+                         grad_fn=grad_fn, async_step_fn=async_step_fn if stale else None,
+                         flush_fn=flush_fn if stale else None)
 
     # the bucket partition depends only on the tree's structure and shapes
     abstract = init_model(None, spec.cfg, "meta")
@@ -370,11 +431,18 @@ def _assemble_train_step(spec: TrainSpec, optimizer: AdamW | None,
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, ef, loss, metrics
 
+    def async_step_fn(params, opt_state, held, ef, batch):
+        (loss, metrics), grads, ef = grad_fn(params, batch, ef)
+        params, opt_state, held = take(grads, opt_state, params, held)
+        return params, opt_state, held, ef, loss, metrics
+
     def init_ef():
         return ef_zeros(buckets, device) if use_ef else {}
 
     return TrainStep(spec=spec, device=device, step_fn=step_fn, loss_fn=loss_fn,
-                     grad_fn=grad_fn, init_ef=init_ef, buckets=buckets)
+                     grad_fn=grad_fn, init_ef=init_ef, buckets=buckets,
+                     async_step_fn=async_step_fn if stale else None,
+                     flush_fn=flush_fn if stale else None)
 
 
 def init_train_state(seed: int, ts: TrainStep, optimizer: AdamW | None = None):

@@ -472,13 +472,8 @@ def test_launcher_trains_on_cpu(capsys):
     assert res["ts"].device.type == "cpu"
 
 
-REFUSED = [pytest.param(["--plan", "--staleness", "1"], id="--plan --staleness"),
-           ["--staleness", "1"], ["--double-buffer"], ["--events", "fail@2"],
-           ["--fail-at", "3"],
-           pytest.param(["--plan", "--portfolio", "2"], id="--plan --portfolio"),
-           ["--portfolio", "2"], ["--checkpoint-dir", "ck"], ["--devices", "8"],
-           ["--data-axis", "2"],
-           pytest.param(["--plan", "--events", "fail@2"], id="--plan --events")]
+REFUSED = [pytest.param(["--plan", "--portfolio", "2"], id="--plan --portfolio"),
+           ["--portfolio", "2"], ["--devices", "8"], ["--data-axis", "2"]]
 
 
 @pytest.mark.parametrize("flags", REFUSED, ids=lambda f: f[0])
