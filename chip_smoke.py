@@ -107,6 +107,24 @@ vocab 65536):
    ``backup_now``; the restored rows and edge leaves bitwise the step-2
    backup, every other row bitwise untouched, the reconciliation, finite
    losses and every step's launch counts;
+6e. the plan portfolio at full width and 16 layers, after 6d's state is
+   freed (a compressed finalist's error-feedback residual and unbounded
+   buckets do not fit beside the 32-layer state): (a) ``launch.train --plan
+   --portfolio 3 --probation-rounds 2`` on 6c's artifact cut to 16 layers
+   (4 virtual devices of 20 GB, model axis 4), batch 8 x 256, 4 steps: each
+   finalist's family, predicted round, wall and CUDA-event rounds, its
+   reckoned (``reckon_probe``) and measured peak memory and allocator
+   retries, the winner and whether it churned, the digest identity line
+   (which must read True), every probe round's and step's launch counts as
+   the installed plan implies, the ms/step after the auction and the
+   auction's wall split into adoptions, probe rounds and the closing
+   re-seed of backups; (b) 6d (c)'s artifact cut to 16 layers (3 devices
+   of 36 GB, model axis 6), ``--portfolio 2 --fail-at 3`` (the installed
+   plan's last stage's device): the step that recovers runs a
+   2-candidate auction planned on the survivors, whose report is printed;
+   every installed rank live, finite losses, launch counts; (c) 4 layers:
+   a session probed (k = 3, window 1) between steps 2 and 3 and a twin
+   never probed hold equal canonical leaves under ``torch.equal``;
 7a. Jamba layer parity at full width, card vs CPU: a Mamba+MLP layer and
    the attention+MLP layer, ``apply_layer`` on (1, 256) tokens, then 8
    ``decode_layer`` steps from fresh states;
@@ -143,8 +161,8 @@ vocab 65536):
    turn until their caches span 4x the L2 (so they come from HBM); prints
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
    the phi3 serving, phi3 training, phi3 planned training, staleness-1 and
-   failure-recovery training, Jamba serving and rwkv6-7b serving paths) and,
-   last, ``{"ok": true, ...}``.
+   failure-recovery training, portfolio (6e (a), (b)), Jamba serving and
+   rwkv6-7b serving paths) and, last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -2210,6 +2228,331 @@ def phase_fail_train(torch, ops, dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6e: the plan portfolio: the opening auction, a churn auction, and a
+# probation's bit-identity
+# ---------------------------------------------------------------------------
+
+# the portfolio's auctions run phi3 at full width and 16 of its 32 layers:
+# a compressed finalist brings error feedback and one unbounded bucket per
+# free-axes group (CompressionConfig's defaults), whose residual and wire
+# copies (reckon_probe) do not fit beside the 32-layer state
+PORTFOLIO_LAYERS = 16
+
+
+def _step_counts(L, ts):
+    """Kernel launches of one training step, or of one probe round (the
+    gradient function launches every kernel of the step), of ``ts`` at
+    ``L`` layers: quantize and dequantize only where ``ts`` has a wire."""
+    spec = ts.spec
+    M, P = spec.n_micro, spec.plan.stage
+    q = 2 * M * (P - 1) + len(ts.buckets) if spec.compress != "none" else 0
+    return {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
+            "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M, "quantize_tiles": q,
+            "dequantize_tiles": q, "mamba_scan": 0, "rwkv6_wkv": 0}
+
+
+def reckon_probe(ts, params) -> dict:
+    """Bytes a probe round of ``ts`` holds at its peak, activations left
+    out, from the code: the parameters, AdamW's m and v, one round's
+    gradients, the session's residual tree (``init_ef``: one float per
+    parameter with error feedback), and the wire's transients at its worst
+    bucket (``runtime.train.wire_buckets``, ``quant_transfer.roundtrip_ef``):
+    the residuals of the buckets before it, the bucket's flattened copy
+    (more than one leaf), the compensated sum and the new residual (error
+    feedback), the dequantized copy, and the payload with its scales
+    (gone before the new residual is taken)."""
+    from repro_torch.optim import tree_leaves
+
+    spec = ts.spec
+    n_par = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    wire = spec.compress != "none"
+    ef = wire and spec.error_feedback
+    worst, done = 0, 0
+    if wire:
+        for _, idxs, sizes in ts.buckets:
+            n = sum(sizes)
+            payload = n + 4 * -(-n // spec.quant_tile)
+            here = (done + (4 * n if len(idxs) > 1 else 0) + (4 * n if ef else 0)
+                    + 4 * n + max(payload, 4 * n if ef else 0))
+            worst = max(worst, here)
+            done += 4 * n if ef else 0
+    out = {"params": n_par, "moments": 2 * n_par, "grads": n_par,
+           "residual": n_par if ef else 0, "wire": worst}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _timed(torch, dev, obj, name, wall, before=None, after=None):
+    """Replace ``obj.name`` by a wrapper that synchronizes the card around
+    the call and appends its wall seconds to ``wall[name]``; ``before()``
+    and ``after(out)`` run outside the timed span."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        if before is not None:
+            before()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize(dev)
+        wall.setdefault(name, []).append(time.perf_counter() - t)
+        if after is not None:
+            after(out)
+        return out
+    setattr(obj, name, run)
+
+
+def _portfolio_cut(cfg, src: str, name: str) -> str:
+    """``src``'s artifact cut to ``cfg``'s depth (``launch.profile.cut_layers``)
+    under ``profiles/``."""
+    from repro_torch.core.profiler import load_profile, save_profile
+    from repro_torch.launch.profile import cut_layers
+
+    path = str(ROOT / "profiles" / name)
+    save_profile(path, cut_layers(load_profile(str(ROOT / "profiles" / src)), cfg))
+    return path
+
+
+def _run_portfolio(torch, ops, dev, argv, L):
+    """``launch.train`` with ``argv`` in process, every auction watched:
+    the probe rounds' launches and peak memory, the wall time of each
+    auction split into adoptions, probe rounds, the closing re-seed of the
+    backups and the rest, the digests' wall; every step's launches."""
+    from repro_torch.launch import train as launcher
+
+    zeros = {k: 0 for k in ops.LAUNCHES}
+    marks, probes, auctions, wall, got = [], [], [], {}, {}
+
+    def probe_before():
+        s = got["session"]
+        marks.append((f"before probe {len(probes)}", dict(ops.LAUNCHES), zeros))
+        torch.cuda.reset_peak_memory_stats(dev)
+        probes.append({"spec": s.ts.spec, "reckoned": reckon_probe(s.ts, s.params),
+                       "counts": _step_counts(L, s.ts),
+                       "retries": torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)})
+
+    def probe_after(out):
+        p = probes[-1]
+        p["peak"] = torch.cuda.max_memory_allocated(dev)
+        p["retries"] = (torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+                        - p["retries"])
+        n = len(out[0])
+        marks.append((f"probe {len(probes) - 1} ({n} rounds)", dict(ops.LAUNCHES),
+                      {k: n * v for k, v in p["counts"].items()}))
+
+    def auction_before():
+        got["at"] = {k: len(v) for k, v in wall.items()}
+        got["first_probe"] = len(probes)
+
+    def auction_after(report):
+        at = got["at"]
+
+        def new(name):
+            return wall.get(name, [])[at.get(name, 0):]
+
+        auctions.append({"report": report, "wall": wall["probe_portfolio"][-1],
+                         "adopt": sum(new("_adopt_plan")), "n_adopt": len(new("_adopt_plan")),
+                         "probe": sum(new("_probe_rounds")),
+                         "reseed": sum(new("_reseed_backups")),
+                         "probes": probes[got["first_probe"]:],
+                         "step": got["session"].step_count,
+                         "live": got["session"].live_ranks})
+
+    def on_session(session):
+        got["session"] = session
+        for name in ("_adopt_plan", "_reseed_backups", "canonical_digests"):
+            _timed(torch, dev, session, name, wall)
+        _timed(torch, dev, session, "_probe_rounds", wall, probe_before, probe_after)
+        _timed(torch, dev, session, "probe_portfolio", wall, auction_before, auction_after)
+        fail = session.fail
+
+        def fail_watched(rank):
+            got["failed"] = rank
+            return fail(rank)
+        session.fail = fail_watched
+
+    peaks = []
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES), _step_counts(L, ts)))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step, on_session=on_session)
+    launches = dict(ops.LAUNCHES)
+    _check_marks(marks, launches, lambda label, want: want)
+    return res, launches, auctions, wall, got, peaks
+
+
+def _print_auction(a, card: str) -> None:
+    rep = a["report"]
+    for i, (r, p) in enumerate(zip(rep.results, a["probes"])):
+        spec, rk = p["spec"], p["reckoned"]
+        print(f"  finalist {i} {r.family}: P {spec.plan.stage}, M {spec.n_micro}, staleness "
+              f"{spec.staleness}, wire {spec.compress}"
+              + (f" (error feedback {spec.error_feedback}, bucket_mb {spec.bucket_mb})"
+                 if spec.compress != "none" else f" (bucket_mb {spec.bucket_mb})")
+              + f"; predicted round {r.predicted_s * 1e3:.1f} ms; wall rounds "
+              f"{[round(x * 1e3, 1) for x in r.rounds]} ms, CUDA-event rounds "
+              f"{[round(x * 1e3, 1) for x in r.device_rounds]} ms, measured "
+              f"{r.measured_s * 1e3:.1f} ms; peak reckoned {rk['total'] / 1e9:.3f} GB "
+              f"(params {rk['params'] / 1e9:.3f}, m+v {rk['moments'] / 1e9:.3f}, grads "
+              f"{rk['grads'] / 1e9:.3f}, residual {rk['residual'] / 1e9:.3f}, wire "
+              f"{rk['wire'] / 1e9:.3f}; activations left out), measured "
+              f"{p['peak'] / 1e9:.3f} GB, {p['retries']} allocator retries (a cache flush and "
+              f"a new cudaMalloc each)" + ("  <- installed" if r.installed else ""))
+    rest = a["wall"] - a["adopt"] - a["probe"] - a["reseed"]
+    print(f"  winner {rep.winner.family} (finalist {rep.winner_index}), churned "
+          f"{rep.churned}; {len(rep.results)} finalists of {rep.n_candidates} candidates "
+          f"({rep.n_enumerated} enumerated), {rep.window}-round probation; auction wall "
+          f"{a['wall'] * 1e3:.1f} ms: adoptions {a['adopt'] * 1e3:.1f} ms ({a['n_adopt']}), "
+          f"probe rounds {a['probe'] * 1e3:.1f} ms, closing re-seed of backups "
+          f"{a['reseed'] * 1e3:.1f} ms, the rest (enumeration, lowering checks) "
+          f"{rest * 1e3:.1f} ms; card {card}")
+
+
+def phase_portfolio(torch, ops, dev, card: str) -> dict:
+    """6e (a): the opening auction.  ``launch.train --plan --portfolio 3
+    --probation-rounds 2`` at full width and 16 layers on 6c's artifact cut
+    to that depth (4 virtual devices of 20 GB, model axis 4), batch 8 x
+    256, 4 steps."""
+    from repro_torch.configs import get_config
+
+    L = PORTFOLIO_LAYERS
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=L)
+    path = _portfolio_cut(cfg, "phase6c_profile.json", "phase6e_profile.json")
+    argv = ["--plan", "--profile", path, "--n-layers", str(L), "--devices", "4",
+            "--global-batch", "8", "--n-micro", "4", "--seq", "256", "--compress", "int8",
+            "--bucket-mb", "256", "--no-error-feedback", "--portfolio", "3",
+            "--probation-rounds", "2", "--steps", "4", "--log-every", "1"]
+    res, launches, auctions, wall, got, peaks = _run_portfolio(torch, ops, dev, argv, L)
+    report, identical = res["portfolio"]
+    if len(auctions) != 1 or auctions[0]["report"] is not report:
+        raise AssertionError(f"{len(auctions)} auctions, not the opening one alone")
+    _print_auction(auctions[0], card)
+    digests = wall["canonical_digests"]
+    print(f"  portfolio: probation state bit-identical: {identical} (per-leaf SHA-256 "
+          f"digests before and after, {[round(x, 2) for x in digests]} s)")
+    if not identical:
+        raise AssertionError("the opening auction changed the training state")
+    if len(report.results) < 2:
+        raise AssertionError(f"{len(report.results)} finalists: nothing was auctioned")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    print(f"portfolio_train phi3-mini-3.8b full width, {L} layers, fp32: winner "
+          f"{report.winner.family} installed; {ms_step:.1f} ms/step after the auction over "
+          f"{res['timed_steps']} timed steps; peak memory of the steps "
+          f"{max(peaks) / 1e9:.3f} GB; losses {[round(x, 6) for x in losses]}; card {card}")
+    got.clear()
+    del res, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "auction_s": auctions[0]["wall"]}
+
+
+def phase_portfolio_churn(torch, ops, dev, card: str) -> dict:
+    """6e (b): the churn auction.  6d (c)'s cluster (3 virtual devices of
+    36 GB, model axis 6) at 16 layers with ``--portfolio 2 --fail-at 3``:
+    the last stage's device of the installed plan fails, and the step that
+    recovers runs a 2-candidate auction planned on the survivors."""
+    from repro_torch.configs import get_config
+
+    L = PORTFOLIO_LAYERS
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=L)
+    path = _portfolio_cut(cfg, "phase6d_profile.json", "phase6e_churn_profile.json")
+    argv = ["--plan", "--profile", path, "--n-layers", str(L), "--devices", "6",
+            "--global-batch", "8", "--n-micro", "4", "--seq", "256", "--compress", "int8",
+            "--bucket-mb", "256", "--no-error-feedback", "--staleness", "1",
+            "--portfolio", "2", "--fail-at", "3", "--backup-every", "2", "--steps", "5",
+            "--log-every", "1"]
+    res, launches, auctions, wall, got, _ = _run_portfolio(torch, ops, dev, argv, L)
+    session = res["session"]
+    if len(auctions) != 2 or len(session.recoveries) != 1:
+        raise AssertionError(f"{len(auctions)} auctions and {len(session.recoveries)} "
+                             "recoveries, not the opening auction, one recovery and the "
+                             "churn auction")
+    churn = auctions[1]
+    rank = got["failed"]
+    survivors = tuple(d for d in range(3) if d != rank)
+    print(f"  opening auction: winner {auctions[0]['report'].winner.family}")
+    print(f"  rank {rank} failed before step 3; recovery "
+          f"{session.recoveries[0].mode}; churn auction at step {churn['step']} on the "
+          f"survivors {survivors}:")
+    _print_auction(churn, card)
+    installed = tuple(sorted({d for st in session.plan.stages for d in st.group}))
+    print(f"  installed plan {[(st.layers, st.group) for st in session.plan.stages]}: ranks "
+          f"{installed}, live {session.live_ranks}")
+    if (churn["step"] != 3 or len(churn["report"].results) > 2
+            or churn["live"] != session.live_ranks):
+        raise AssertionError(f"churn auction after step {churn['step']} of "
+                             f"{len(churn['report'].results)} finalists with live ranks "
+                             f"{churn['live']}")
+    if rank in installed or not set(installed) <= set(survivors):
+        raise AssertionError(f"the installed plan uses ranks {installed}; rank {rank} failed")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    print(f"portfolio_churn phi3-mini-3.8b full width, {L} layers, fp32, 3 x 36 GB virtual "
+          f"devices: losses {[round(x, 6) for x in losses]}; card {card}")
+    got.clear()
+    del res, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "auction_s": churn["wall"]}
+
+
+def phase_portfolio_identity(torch, ops, dev, card: str) -> None:
+    """6e (c): at 4 full-width layers, a session probed with k = 3, window
+    1 between steps 2 and 3 and a twin never probed, on the same batches:
+    their canonical leaves equal leaf by leaf under ``torch.equal`` on the
+    card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiler import load_profile
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.session import PipelineSession
+
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=4)
+    path = _portfolio_cut(cfg, "phase6c_profile.json", "phase6e_identity_profile.json")
+    argv = ["--plan", "--profile", path, "--n-layers", "4", "--devices", "4",
+            "--global-batch", "8", "--n-micro", "4", "--seq", "256", "--compress", "int8",
+            "--bucket-mb", "256", "--no-error-feedback"]
+    plan, prof = launcher._plan(launcher._parse(argv), cfg, load_profile(path), 4, dev)
+    if prof.source != "measured":
+        raise AssertionError(f"planned on the {prof.source} profile")
+    kw = dict(compress="int8", bucket_mb=256, error_feedback=False, device=dev)
+    probed, twin = (PipelineSession(cfg, 4, plan, prof, backup_every=0, **kw)
+                    for _ in range(2))
+    for s in (probed, twin):
+        s.init(4)
+    ds = SyntheticLM(cfg.vocab_size, 256)
+    for k in range(2):
+        for s in (probed, twin):
+            s.step(ds.batch(k, 8))
+    report = probed.probe_portfolio(ds.batch(2, 8), k=3, window=1)
+    a = probed.canonical_leaves(as_numpy=False)
+    b = twin.canonical_leaves(as_numpy=False)
+    pairs = [(x, y) for k in b for x, y in zip(tree_leaves(a[k]), tree_leaves(b[k]))]
+    same = a.keys() == b.keys() and all(torch.equal(x, y) for x, y in pairs)
+    print(f"  {len(report.results)} finalists {[r.family for r in report.results]}, winner "
+          f"{report.winner.family}; {len(pairs)} canonical leaves (params, m, v) of the "
+          f"probed session equal to the never-probed twin's under torch.equal: {same}")
+    if not same:
+        raise AssertionError("the probation changed the training state")
+    losses = [s.step(ds.batch(2, 8))[0] for s in (probed, twin)]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    del probed, twin, a, b, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: Jamba-1.5-Large without experts, one 8-layer period
 # ---------------------------------------------------------------------------
 
@@ -2570,6 +2913,12 @@ def main() -> int:
     stale_train = phase_stale_train(torch, ops, dev, card, plan_train)
     print("phase 6d (c): a failure and its recovery through launch.train --plan --fail-at")
     fail_train = phase_fail_train(torch, ops, dev, card)
+    print("phase 6e (a): the plan portfolio's opening auction at full width, 16 layers")
+    portfolio = phase_portfolio(torch, ops, dev, card)
+    print("phase 6e (b): a failure, then the churn auction on the survivors, 16 layers")
+    churn = phase_portfolio_churn(torch, ops, dev, card)
+    print("phase 6e (c): a probation is invisible to the training state, 4 layers")
+    phase_portfolio_identity(torch, ops, dev, card)
     print("phase 7a: Jamba layers at full width, card vs CPU")
     phase_jamba_layers(torch, dev)
     jamba = phase_jamba_serve(torch, ops, dev, card)
@@ -2589,6 +2938,8 @@ def main() -> int:
                    "plan_train": plan_train["launches"][e["name"]],
                    "stale_train": stale_train["launches"][e["name"]],
                    "fail_train": fail_train["launches"][e["name"]],
+                   "portfolio_train": portfolio["launches"][e["name"]],
+                   "portfolio_churn": churn["launches"][e["name"]],
                    "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")

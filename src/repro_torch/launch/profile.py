@@ -162,6 +162,25 @@ def retile(mp, replicate: int, mem_bytes: float | None = None):
         mem_bytes=(mem,) * replicate, est_flops=(mp.est_flops[0],) * replicate)
 
 
+def cut_layers(mp, cfg):
+    """``mp`` cut to a shallower model of the same widths: the rows of the
+    embedding, the first ``cfg.n_layers`` block layers and the head, the
+    artifact restamped for ``cfg`` (its config fingerprint and layer names).
+    No layer is timed again: block layers of one kind take the same time
+    at every depth, so an artifact of the whole model serves a cut of it."""
+    from repro_torch.core.profiler import LayerTable, config_fingerprint
+
+    table = LayerTable.from_model_config(cfg, mp.seq_len)
+    names = tuple(layer.name for layer in table.layers)
+    if names[:-1] != mp.layer_names[:len(names) - 1] or names[-1] != mp.layer_names[-1]:
+        raise ValueError(f"{cfg.name} at {cfg.n_layers} layers is not a cut of the "
+                         f"artifact's {mp.L - 2} layers ({mp.arch})")
+    keep = list(range(len(names) - 1)) + [mp.L - 1]
+    return dataclasses.replace(mp, tf=mp.tf[:, :, keep], tb=mp.tb[:, :, keep],
+                               layer_names=names,
+                               config_hash=config_fingerprint(cfg, mp.seq_len))
+
+
 def main(argv=None) -> str:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.profile",

@@ -13,6 +13,8 @@
         --stage 2 --steps 2 --compress int8
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --plan --devices 2 --fail-at 2 --steps 4                  # the session on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --plan --portfolio 2 --probation-rounds 1 --steps 2       # an opening auction
 
 The port of ``repro.launch.train``.  Without ``--plan``: ``build_train_step``
 with ``--stage`` virtual stages and ``--n-micro`` micro-batches.  With
@@ -47,9 +49,19 @@ recovering without a restart; it prints ``repro``'s ``recovered (...)``,
 ``FINAL sim_tok_s=`` and ``FINAL tok_s=`` lines.  ``--checkpoint-dir``
 saves the final parameters (``checkpoint.save``, ``repro``'s format).
 
-Not ported yet, and refused by name: ``--portfolio``,
-``--probation-rounds`` and ``--drift-threshold`` (the portfolio half of
-the session layer).
+``--portfolio K`` (with ``--plan``) also trains through the session and
+opens with a plan auction before the first step (DESIGN.md §12): every
+strategy family priced on the profile, the top K lowerable finalists each
+probed for ``--probation-rounds`` rounds (plus one warm-up) on step 0's
+batch, the measured winner installed.  It prints each finalist's wall and
+CUDA-event time per round, ``repro``'s two ``portfolio:`` lines and its
+``PORTFOLIO {json}`` record.  Whether the probation left the training
+state bit-identical is read from per-leaf SHA-256 digests taken before and
+after (``PipelineSession.canonical_digests``), not from two host copies of
+the state as ``repro`` compares.  ``--drift-threshold`` arms the drift
+watchdog, which re-opens the auction when the observed/predicted step
+ratio drifts; after a membership swap the next step runs a 2-candidate
+auction on the survivors.
 """
 
 from __future__ import annotations
@@ -59,14 +71,6 @@ import time
 
 import torch
 
-#: flags of ``repro.launch.train`` that need a later slice of the port
-_LATER = {
-    "portfolio": "--portfolio probes planner Plans in a live session "
-                 "(the portfolio half of PipelineSession), a later slice of the port",
-    "probation_rounds": "--probation-rounds belongs to --portfolio, a later slice of the port",
-    "drift_threshold": "--drift-threshold arms the portfolio's drift watchdog, "
-                       "a later slice of the port",
-}
 _MAX_DEVICES = 7       # repro's data axis max(1, N // 4) stays 1 below 8
 
 
@@ -149,15 +153,23 @@ def _parse(argv):
                     help="cluster rank to kill (default: last stage's lead device)")
     ap.add_argument("--backup-every", type=int, default=5,
                     help="stage-replication cadence in steps (with --events)")
-    # repro's flags that belong to a later slice: accepted by the parser so
-    # they can be refused by name
-    ap.add_argument("--portfolio", type=int, default=0, help="not ported yet")
-    ap.add_argument("--probation-rounds", type=int, default=None, help="not ported yet")
-    ap.add_argument("--drift-threshold", type=float, default=None, help="not ported yet")
+    ap.add_argument("--portfolio", type=int, default=0, metavar="K",
+                    help="closed-loop portfolio planning (DESIGN.md §12): "
+                         "enumerate every strategy family, give the top-K "
+                         "finalists a live probation window each, and "
+                         "install the measured winner before training. "
+                         "Requires --plan")
+    ap.add_argument("--probation-rounds", type=int, default=2, metavar="N",
+                    help="timed rounds per finalist in a portfolio "
+                         "probation (plus one warmup round that the robust "
+                         "stat trims)")
+    ap.add_argument("--drift-threshold", type=float, default=None,
+                    help="arm the portfolio drift watchdog: re-open the "
+                         "auction when the EWMA of observed/predicted round "
+                         "latency drifts more than this fraction from its "
+                         "baseline (default: off — probe once, keep the "
+                         "winner)")
     args = ap.parse_args(argv)
-    for flag, why in _LATER.items():
-        if getattr(args, flag) not in (None, False, 0):
-            raise SystemExit(why)
     args.events = _parse_events(args.events)
     if args.fail_at is not None:     # the old flags, kept as sugar
         arg = "" if args.fail_rank is None else str(args.fail_rank)
@@ -182,6 +194,9 @@ def _parse(argv):
     if args.compress == "auto" and not args.plan:
         raise SystemExit("--compress auto requires --plan (the planner prices "
                          "the compressed vs raw wire)")
+    if args.portfolio and not args.plan:
+        raise SystemExit("--portfolio requires --plan (the auction probes "
+                         "re-lowered planner Plans)")
     if args.n_micro and args.global_batch % args.n_micro:
         raise SystemExit(f"--n-micro {args.n_micro} must divide "
                          f"--global-batch {args.global_batch}")
@@ -198,7 +213,8 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
     given, runs after each step, before the step's timing mark;
     ``on_session(session)`` runs once the membership session is built.
     Returns the per-step losses, the timing, the step and the final state
-    (and the session, on the ``--events`` path)."""
+    (and the session and the opening auction's ``(report, bit_identical)``,
+    on the ``--events`` / ``--portfolio`` path)."""
     args = _parse(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -251,11 +267,17 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
         spec_kw = dict(compress=run_compress, quant_tile=args.quant_tile,
                        bucket_mb=args.bucket_mb, error_feedback=args.error_feedback,
                        staleness=args.staleness, double_buffer=args.double_buffer)
-        if args.events:
+        if args.events or args.portfolio:
             from repro_torch.runtime.session import PipelineSession
+            watchdog = None
+            if args.portfolio and args.drift_threshold is not None:
+                from repro_torch.core.portfolio import DriftWatchdog
+                watchdog = DriftWatchdog(threshold=args.drift_threshold)
             session = PipelineSession(cfg, model_axis, plan, prof, optimizer=opt,
-                                      backup_every=args.backup_every, device=device,
-                                      **spec_kw)
+                                      backup_every=args.backup_every,
+                                      portfolio_k=args.portfolio,
+                                      probation_window=args.probation_rounds,
+                                      drift_watchdog=watchdog, device=device, **spec_kw)
             lowered = session.lowered
             print(f"asteroid plan: {lowered.stage} stages periods="
                   f"{lowered.stage_periods} M={lowered.n_micro} "
@@ -451,6 +473,7 @@ def _run_session(session, cfg, args, device, after_step=None) -> dict:
 
     session.init(0)
     ds = SyntheticLM(cfg.vocab_size, args.seq)
+    report = _opening_auction(session, ds, args) if args.portfolio else None
     loss = float("nan")
     losses: list[float] = []
     seen_recoveries = 0
@@ -505,7 +528,37 @@ def _run_session(session, cfg, args, device, after_step=None) -> dict:
     return {"losses": losses, "tok_s": tput, "sim_tok_s": sim_tput, "timed_steps": timed,
             "seconds": seconds, "session": session, "ts": session.ts,
             "params": session.params, "opt_state": session.opt_state,
-            "lowered": session.lowered}
+            "lowered": session.lowered, "portfolio": report}
+
+
+def _opening_auction(session, ds, args):
+    """The opening auction (DESIGN.md §12): probe the top ``--portfolio``
+    finalists on step 0's batch before the first training step, and show
+    that the probation left the training state bit-identical (per-leaf
+    digests before and after).  Returns ``(report, bit_identical)``."""
+    import json
+
+    before = session.canonical_digests()
+    report = session.probe_portfolio(ds.batch(0, args.global_batch), k=args.portfolio,
+                                     window=args.probation_rounds)
+    identical = session.canonical_digests() == before
+    for i, r in enumerate(report.results):
+        events = (f"CUDA-event rounds {[round(x * 1e3, 2) for x in r.device_rounds]} ms"
+                  if r.device_rounds else "no CUDA events (CPU)")
+        print(f"  finalist {i} {r.family}: predicted {r.predicted_s * 1e3:.2f} ms/round; "
+              f"wall rounds {[round(x * 1e3, 2) for x in r.rounds]} ms, {events}; "
+              f"measured {r.measured_s * 1e3:.2f} ms" + (" (installed)" if r.installed else ""))
+    w, f = report.winner, report.first_choice
+    print(f"portfolio: winner installed {w.family} measured "
+          f"{w.measured_s * 1e3:.2f}ms/round (analytic first choice "
+          f"{f.family} measured {f.measured_s * 1e3:.2f}ms; "
+          f"{len(report.results)} finalists of {report.n_candidates} "
+          f"candidates, {report.window}-round probation)")
+    print(f"portfolio: probation state bit-identical: {identical}")
+    rec = dict(report.to_record(), bit_identical=identical)
+    print("PORTFOLIO " + json.dumps(rec))
+    _print_spec(session.ts.spec)
+    return report, identical
 
 
 def _plan(args, cfg, measured, model_axis: int, device):

@@ -1,8 +1,8 @@
-"""Live pipeline replay and elastic membership on one card (paper §3.4).
+"""Live pipeline replay, elastic membership and the plan portfolio on one
+card (paper §3.4, DESIGN.md §12).
 
-The port of ``repro.runtime.session`` without its portfolio half.
-``PipelineSession`` makes a running pipeline a re-lowerable object.  It
-owns the chain
+The port of ``repro.runtime.session``.  ``PipelineSession`` makes a running
+pipeline a re-lowerable object.  It owns the chain
 
     Plan -> LoweredPlan -> TrainStep -> (params, opt_state)
 
@@ -24,7 +24,14 @@ and keeps training through a membership change without restarting:
    removes it at once; every transition is appended to ``memberships``;
 4. single-device stages push their period rows to their topology-assigned
    backup node every ``backup_every`` steps, and every transition re-seeds
-   the backups for the *new* arrangement.
+   the backups for the *new* arrangement;
+5. with ``portfolio_k`` the session auctions plans (``probe_portfolio``):
+   every strategy family of ``core.portfolio`` priced on the session
+   profile, the top-k lowerable finalists each adopted and timed over a
+   short live probation window, the measured winner installed.  A
+   completed membership swap queues a 2-candidate auction, and a
+   ``DriftWatchdog`` trip a ``portfolio_k``-candidate one, for the next
+   ``step()``.
 
 The ``Profile`` handed to the constructor (analytic, or measured from a
 ``launch.profile`` artifact) is kept for the session's lifetime and reused
@@ -47,14 +54,29 @@ Every recovery and transition, and ``_install`` itself, first applies it
 moves the optimizer state (migration, backup, ``canonical_leaves``) runs
 after a flush, where the port's state equals ``repro``'s.
 
-Not ported yet: the portfolio auctions (``portfolio_k``,
-``drift_watchdog``, ``probe_portfolio``), a later slice.
+A probation round times ``grad_fn`` for every finalist, where ``repro``
+runs ``step_fn`` for a synchronous one and drops its output
+(``_probe_rounds``): the port's optimizer writes parameters and moments in
+place, so a literal port would train during probation, and a clone of the
+state to probe on is as large as the state (46 GB at full width).  On one
+card AdamW costs the same under every finalist, so the ranking among
+synchronous finalists is unchanged; what goes is ``repro``'s charge of the
+optimizer to synchronous finalists alone.  A compressed finalist brings
+its own wire settings (``_plan_spec_kw``): ``CompressionConfig``'s
+defaults are error feedback on and one unbounded bucket per free-axes
+group, so its probe holds a residual as large as the gradients and copies
+of the whole period stack's gradient in the wire, memory that the
+planner's check does not price (neither does ``repro``'s).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import time as _time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -67,7 +89,9 @@ from repro_torch.core.lowering import (DIRECT_SOURCE, LoweredPlan, LoweringError
                                        period_owner, period_positions,
                                        reconcile_migration, relower, snap_plan)
 from repro_torch.core.planner import Plan
-from repro_torch.core.profiler import Profile, ProfileError, extend_profile
+from repro_torch.core.portfolio import (PlanPortfolio, ProbeReport, ProbeResult, pick_winner,
+                                        plan_key, robust_latency)
+from repro_torch.core.profiler import Profile, ProfileError, extend_profile, subset_profile
 from repro_torch.core.replay import (ADMISSION_HYSTERESIS, AdmissionDecision,
                                      DeviceDraining, DeviceEvicted, DeviceFailed,
                                      DeviceJoined, MembershipController,
@@ -75,7 +99,7 @@ from repro_torch.core.replay import (ADMISSION_HYSTERESIS, AdmissionDecision,
                                      assign_backups, departure_replay, heavy_rescheduling,
                                      lightweight_replay)
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import AdamW, AdamWState, SGDState, tree_map
+from repro_torch.optim import AdamW, AdamWState, SGDState, tree_leaves, tree_map
 
 from .train import _assemble_train_step, _check_device, init_train_state, train_spec_from_lowered
 
@@ -109,11 +133,8 @@ class PipelineSession:
     def __init__(self, cfg: ModelConfig, model_axis: int, plan: Plan,
                  profile: Profile, *, optimizer: AdamW | None = None,
                  backup_every: int = 5, check: bool = True,
-                 portfolio_k: int = 0, drift_watchdog=None, device="cuda",
-                 **spec_kw):
-        if portfolio_k or drift_watchdog is not None:
-            raise NotImplementedError("portfolio auctions (portfolio_k, "
-                                      "drift_watchdog) are a later slice of the port")
+                 portfolio_k: int = 0, probation_window: int = 2,
+                 drift_watchdog=None, device="cuda", **spec_kw):
         self.cfg = cfg
         self.model_axis = int(model_axis)
         self.profile = profile
@@ -121,6 +142,16 @@ class PipelineSession:
         self.backup_every = backup_every
         self.spec_kw = spec_kw
         self.device = _check_device(device)
+        # -- portfolio auctions (DESIGN.md §12) --------------------------
+        # portfolio_k > 0 arms the closed loop: a drift-watchdog trip or a
+        # completed membership swap marks an auction pending, and the next
+        # step() (which has a batch to probe with) runs it before training
+        self.portfolio_k = portfolio_k
+        self.probation_window = probation_window
+        self.watchdog = drift_watchdog
+        self.auctions: list = []           # ProbeReports, in order
+        self._auction_pending = False
+        self._auction_k = portfolio_k
 
         self.ts = None
         self.step_cache_hits = 0
@@ -144,6 +175,12 @@ class PipelineSession:
         self._pending_failure: int | None = None
         self.coordinator = MembershipController(sorted(
             d for st in self.plan.stages for d in st.group))
+        if self.portfolio_k:
+            # post-churn replans re-arbitrate analytic-vs-runner-up with a
+            # cheap 2-candidate probation at the next step
+            self.coordinator.auction_hook = self._on_membership_swap
+        if self.watchdog is not None:
+            self.watchdog.install(self.plan, self.profile)
         self.recoveries: list[RecoveryOutcome] = []    # crash recoveries
         self.memberships: list[RecoveryOutcome] = []   # every transition
         # transition-in-flight scratch (set by *_replan, read by migrate)
@@ -174,6 +211,7 @@ class PipelineSession:
             if self.ts.spec.bucketed and self._ef is None:
                 self._ef = self.ts.init_ef()
             return
+        self._ef = None             # free the old residuals before the new ones
         self.ts = _assemble_train_step(spec, self.optimizer, self.device)
         # a rebuilt step re-buckets the gradient tree, so carried
         # quantization residuals no longer line up: drop them
@@ -194,11 +232,21 @@ class PipelineSession:
     def step(self, batch_np: dict):
         """One training step (recovering first if a failure is pending).
 
-        Advances the simulated cluster clock by at least one HPP round (the
-        deployed plan's Eq. 4 latency) and feeds survivor heartbeats to the
-        coordinator."""
+        A pending auction (queued by a membership swap or a watchdog trip)
+        runs next, on this step's batch.  Advances the simulated cluster
+        clock by at least one HPP round (the deployed plan's Eq. 4 latency)
+        and feeds survivor heartbeats to the coordinator; with a watchdog
+        armed, the step's wall time (after a synchronize) is its
+        observation."""
         if self._pending_failure is not None:
             self.recover_now()
+        if self._auction_pending and self.portfolio_k:
+            # a watchdog trip or membership swap re-opened the auction;
+            # this step's batch doubles as the probe batch
+            self._auction_pending = False
+            self.probe_portfolio(batch_np, k=self._auction_k,
+                                 window=self.probation_window)
+        t0 = _time.perf_counter() if self.watchdog is not None else 0.0
         batch = self.ts.shard_batch(batch_np)
         bucketed = self.ts.spec.bucketed
         if self.ts.spec.staleness >= 1:
@@ -218,6 +266,11 @@ class PipelineSession:
         else:
             self.params, self.opt_state, loss, metrics = self.ts.step_fn(
                 self.params, self.opt_state, batch)
+        if self.watchdog is not None:
+            self._sync()
+            if self.watchdog.observe(_time.perf_counter() - t0):
+                self._auction_pending = True
+                self._auction_k = self.portfolio_k or 2
         self.step_count += 1
         self.clock += max(self.plan.latency, self.coordinator.heartbeat_period)
         for r in self.live_ranks:
@@ -239,22 +292,218 @@ class PipelineSession:
         self._held = None
         return True
 
-    def canonical_leaves(self) -> dict:
-        """Training state in plan-independent canonical form, as numpy trees
-        (``params``, and ``m``/``v`` or ``mom``).  The port's period stack
-        is already in canonical (model) order and carries no vocab padding.
-        Two sessions hold bit-identical training state iff these are equal.
-        Read it after a flush: a held update is not part of it."""
-        def canon(tree):
-            return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
-        trees = {"params": canon(self.params)}
+    # -- portfolio auctions (DESIGN.md §12) --------------------------------
+
+    def _on_membership_swap(self, kind: str, rank: int | None) -> None:
+        """``MembershipController.auction_hook``: a completed churn swap
+        installed an analytically replanned pipeline; queue a cheap
+        2-candidate auction so the measured card, not the cost model,
+        confirms (or overturns) that choice at the next step."""
+        self._auction_pending = True
+        self._auction_k = 2
+
+    def _plan_spec_kw(self, plan: Plan) -> dict:
+        """Spec kwargs with ``plan``'s gradient-sync and wire semantics
+        merged in: a portfolio candidate carries its own staleness and
+        compression, which win over the constructor's ``spec_kw``.  A
+        compressed candidate's ``CompressionConfig`` brings its own
+        ``bucket_mb`` and ``error_feedback`` too (by default one unbounded
+        bucket per free-axes group, with error feedback), overriding a
+        launcher's ``--bucket-mb`` / ``--no-error-feedback``, as in
+        ``repro``."""
+        kw = dict(self.spec_kw)
+        kw["staleness"] = getattr(plan, "staleness", 0)
+        comp = getattr(plan, "compress", None)
+        if comp is not None:
+            kw.update(compress=comp.fmt, quant_tile=comp.tile,
+                      bucket_mb=comp.bucket_mb, error_feedback=comp.error_feedback)
+        else:
+            # uncompressed candidate: raw wire, but keep any bucketing the
+            # caller configured
+            kw["compress"] = "none"
+        return kw
+
+    def _adopt_plan(self, plan: Plan, *, reseed: bool = True) -> None:
+        """Swap the session onto ``plan`` with no membership event: apply a
+        held update, migrate the period stack and the optimizer moments by
+        the gather a churn transition uses (the identity on one card),
+        merge the plan's sync and wire semantics into the spec, and
+        re-install (the step is reused when the spec is unchanged).  The
+        probation primitive, called k times in a row by
+        ``probe_portfolio``.  ``repro``'s re-padding of the vocab leaves
+        and its ``device_put`` have no counterpart: tp is a label here and
+        the stack carries no vocab padding."""
+        self.flush_gradients()
+        old_lp = self.lowered
+        new_lp = relower(old_lp, plan, self.cfg, self.model_axis)
+        new_params, _ = migrate_params(self.params, old_lp, new_lp)
+        new_opt = migrate_opt_state(self.opt_state, old_lp, new_lp)
+        self.spec_kw = self._plan_spec_kw(plan)
+        self._install(plan, new_lp)
+        self.params, self.opt_state = new_params, new_opt
+        if reseed:
+            self._reseed_backups(old_lp)
+
+    def _probe_rounds(self, batch_np: dict, window: int):
+        """Time ``window + 1`` rounds of the installed plan's gradient
+        function, committing nothing: parameters, moments, error-feedback
+        residuals and a held update are left as they were (the bit-identity
+        invariant).  The first round absorbs a cold step;
+        ``portfolio.robust_latency`` trims it.
+
+        ``repro`` runs ``step_fn`` for a synchronous finalist and drops its
+        output.  The port's ``step_fn`` updates parameters and moments in
+        place, so every finalist is timed on ``grad_fn`` (its wire
+        included): the residual tree ``wire_buckets`` returns is a new
+        dict, so ``self._ef`` stays untouched.  Each round's outputs are
+        freed before the next one starts.  Returns the wall seconds per
+        round and, on the card, the CUDA-event seconds per round (empty on
+        the CPU)."""
+        batch = self.ts.shard_batch(batch_np)
+        cuda = self.device.type == "cuda"
+        times, device_times = [], []
+        for _ in range(window + 1):
+            self._sync()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = _time.perf_counter()
+            if self.ts.spec.bucketed:
+                out = self.ts.grad_fn(self.params, batch, self._ef)
+            else:
+                out = self.ts.grad_fn(self.params, batch)
+            if cuda:
+                end.record()
+            self._sync()
+            times.append(_time.perf_counter() - t0)
+            if cuda:
+                device_times.append(start.elapsed_time(end) / 1e3)
+            del out
+        return times, device_times
+
+    def probe_portfolio(self, batch_np: dict | None = None, k: int = 3, window: int = 2, *,
+                        hysteresis: float = 0.0, measure=None) -> ProbeReport:
+        """Run one portfolio auction (DESIGN.md §12): enumerate every
+        strategy family on the session profile, take the top-``k``
+        lowerable finalists by predicted round latency, give each a live
+        ``window``-round probation, and install the measured winner.
+
+        Finalists probe in predicted order under ``portfolio.pick_winner``'s
+        strict comparison, so ties keep the analytically best plan and a
+        measurement matching the predictions never churns.  ``measure``
+        overrides the live probe with ``measure(candidate) -> seconds |
+        [rounds]`` (the full adopt/migrate cycle still runs).  After churn
+        the enumeration is restricted to the surviving ranks through
+        ``profiler.subset_profile``.  Backups are re-seeded once, at the
+        end, against the layout before the auction.  Returns the
+        ``ProbeReport`` (also kept in ``self.auctions``)."""
+        if batch_np is None and measure is None:
+            raise ValueError("probe_portfolio needs a probe batch (or a measure= override)")
+        if self._pending_failure is not None:
+            self.recover_now()
+        self.flush_gradients()
+        # the auction's pool is membership-derived (the profile's cluster
+        # less crashed and departed ranks), not the installed plan's groups:
+        # a winner that idles a device must not shrink later auctions
+        pool = tuple(sorted(set(range(len(self.profile.cluster.devices)))
+                            - self._failed - self._departed))
+        prof, ranks = self.profile, None
+        if len(pool) < len(self.profile.cluster.devices):
+            ranks = pool
+            prof = subset_profile(self.profile, pool)
+        portfolio = PlanPortfolio.enumerate(
+            prof, self.lowered.global_batch, self.lowered.micro_batch,
+            arch=self.plan.arch or self.cfg.name,
+            allowed_stages=self._lowerable_stages, ranks=ranks)
+
+        def _lowerable(c) -> bool:
+            try:
+                relower(self.lowered, c.plan, self.cfg, self.model_axis)
+                return True
+            except (LoweringError, AllocationError):
+                return False
+
+        finalists = portfolio.finalists(k, runnable=_lowerable)
+        if not finalists:
+            raise RuntimeError("portfolio produced no lowerable finalist for this session")
+        incumbent_key = plan_key(self.plan)
+        pre_lp = self.lowered       # backups in the store are keyed by this
+        results: list[ProbeResult] = []
+        keys = []
+        for c in finalists:
+            self._adopt_plan(c.plan, reseed=False)
+            keys.append(plan_key(self.plan))       # snapped, like the incumbent
+            device_rounds: tuple = ()
+            if measure is not None:
+                m = measure(c)
+                rounds = (tuple(float(x) for x in m)
+                          if isinstance(m, (list, tuple)) else (float(m),))
+                measured = robust_latency(list(rounds), warmup=1 if len(rounds) > 1 else 0)
+            else:
+                wall, dev = self._probe_rounds(batch_np, window)
+                rounds, device_rounds = tuple(wall), tuple(dev)
+                measured = robust_latency(list(rounds))
+            results.append(ProbeResult(c.family, c.predicted_s, measured, rounds,
+                                       device_rounds=device_rounds))
+        best = pick_winner([r.measured_s for r in results], hysteresis)
+        if keys[best] != plan_key(self.plan):
+            # probation ended on a finalist that lost: swap back
+            self._adopt_plan(finalists[best].plan, reseed=False)
+        self._reseed_backups(pre_lp)
+        results[best] = dataclasses.replace(results[best], installed=True)
+        if self.watchdog is not None:
+            self.watchdog.install(self.plan, self.profile)
+        report = ProbeReport(tuple(results), best, len(portfolio.candidates),
+                             portfolio.n_enumerated, window,
+                             churned=keys[best] != incumbent_key)
+        self.auctions.append(report)
+        return report
+
+    # -- canonical state ---------------------------------------------------
+
+    def _canonical_trees(self) -> dict:
+        trees = {"params": self.params}
         if isinstance(self.opt_state, AdamWState):
-            trees["m"] = canon(self.opt_state.m)
-            trees["v"] = canon(self.opt_state.v)
+            trees["m"] = self.opt_state.m
+            trees["v"] = self.opt_state.v
         elif isinstance(self.opt_state, SGDState):
-            trees["mom"] = canon(self.opt_state.mom)
+            trees["mom"] = self.opt_state.mom
         return trees
+
+    def canonical_leaves(self, as_numpy: bool = True) -> dict:
+        """Training state in plan-independent canonical form (``params``,
+        and ``m``/``v`` or ``mom``): numpy trees, or with ``as_numpy=False``
+        the tensors themselves where they lie (to compare on the card).
+        The port's period stack is already in canonical (model) order and
+        carries no vocab padding.  Two sessions hold bit-identical training
+        state iff these are equal.  Read it after a flush: a held update is
+        not part of it."""
+        def leaf(t):
+            return t.detach().cpu().numpy() if as_numpy else t.detach()
+
+        return {k: tree_map(leaf, v) for k, v in self._canonical_trees().items()}
+
+    def canonical_digests(self) -> list[str]:
+        """SHA-256 of each leaf of ``canonical_leaves``' trees (its shape,
+        dtype and bytes), in their order.  Each leaf is copied to the host
+        on its own, one per CPU core at a time (at most 8 in flight): at
+        full width the state is tens of GB, and two host copies of it to
+        compare before and after would double that.  Equal lists mean
+        bit-identical state."""
+        def digest(t):
+            t = t.detach().contiguous()
+            h = hashlib.sha256(f"{tuple(t.shape)} {t.dtype}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).cpu().numpy())
+            return h.hexdigest()
+
+        leaves = [t for tree in self._canonical_trees().values() for t in tree_leaves(tree)]
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+            return list(pool.map(digest, leaves))
 
     # -- replication -------------------------------------------------------
 

@@ -305,6 +305,22 @@ def test_launcher_events_need_plan(flags):
 @pytest.mark.parametrize("flags", [["--plan", "--probation-rounds", "3"],
                                    ["--plan", "--drift-threshold", "0.2"]])
 def test_launcher_refuses_portfolio_flags(flags):
+    """The portfolio's flags act beside ``--portfolio``: the probation
+    window is ``--probation-rounds``, and ``--drift-threshold`` arms the
+    session's watchdog.  ``--portfolio`` without ``--plan`` is refused."""
+    res = launcher.main(["--smoke", "--device", "cpu", "--portfolio", "2", "--steps", "1",
+                         "--global-batch", "8", "--seq", "32", *flags])
+    report, identical = res["portfolio"]
+    session = res["session"]
+    assert identical and session.auctions == [report]
+    assert report.window == session.probation_window == (3 if "--probation-rounds" in flags
+                                                         else 2)
+    assert all(len(r.rounds) == report.window + 1 for r in report.results)
+    if "--drift-threshold" in flags:
+        assert session.watchdog.threshold == 0.2 and session.watchdog.predicted_s > 0
+    else:
+        assert session.watchdog is None
     with pytest.raises(SystemExit) as exc:
-        launcher.main(["--smoke", "--device", "cpu", *flags])
-    assert "later slice" in str(exc.value.code)
+        launcher.main(["--smoke", "--device", "cpu", "--portfolio", "2",
+                       *[f for f in flags if f != "--plan"]])
+    assert "--portfolio requires --plan" in str(exc.value.code)

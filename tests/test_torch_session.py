@@ -353,9 +353,11 @@ def test_install_rebuilds_only_on_spec_change():
     session._install(session.plan, session.lowered)
     assert session.step_cache_hits == 1 and session.ts is not old
     assert session.ts.async_step_fn is not None
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PipelineSession(session.cfg, 1, session.plan, session.profile, portfolio_k=2,
-                        device="cpu")
+    # a portfolio session builds (no refusal) and arms the churn auction
+    armed = PipelineSession(session.cfg, 1, session.plan, session.profile, portfolio_k=2,
+                            device="cpu")
+    assert armed.coordinator.auction_hook == armed._on_membership_swap
+    assert armed.portfolio_k == 2 and not armed._auction_pending
 
 
 def test_drain_evict_losses_match_repro():
