@@ -62,6 +62,25 @@ vocab 65536):
 5. serves at full width: one ``build_prefill_step`` call over 8 x 512
    tokens, then the launcher (batch 8, prompt 128, gen 128), with every
    kernel's launch count checked against what the path implies;
+5b. continuous and planned serving at full width, after phase 5's state is
+   freed: (a) ``build_slot_serve_step`` at shard_alloc (3, 1) (6 rows, 4
+   live, 2 padded), slots admitted at wall steps (0, 1, 2, 1) for 6
+   positions each (``repro``'s ``run_serve_hetero`` schedule): every
+   (slot, position)'s logits against lockstep ``build_serve_step`` at batch
+   4 on the same weights and tokens, padded rows exactly 0, 32
+   ``flash_decode`` and 32 ``fused_swiglu`` launches a step and no other;
+   (b) the same schedule on 2 and 4 virtual stages in 2 groups against (a),
+   64 launches of each a step; (c) ``launch.serve --continuous --devices 8
+   --requests 12 --prompt-len 16 --gen 32 --max-slots 4`` in process: the
+   serve plan on the modeled Jetson cluster, the engine step and the
+   offered load, requests, tokens, steps and tok/s served, token-latency
+   p50/p95/p99 beside those predicted from the measured step; every request
+   32 tokens in the vocabulary, launch counts 32 x (warm-up calls + engine
+   steps) of each kernel; (d) (c)'s requests through a fresh engine on the
+   same weights with the slot list reversed, every token identical; the
+   engine step's device-busy share from a profiler trace beside phase 5's
+   lockstep ms/step, and its host parts (row arrays to the card, logits
+   back, host draws) timed alone;
 6a. training parity at full width and 2 layers (2 virtual stages), card vs
    CPU: one uncompressed gradient (loss and every leaf); one int8 step with
    error feedback through ``step_fn`` on both sides, taken apart: the loss
@@ -160,7 +179,8 @@ vocab 65536):
    ``repeat_interleave``'s) device time, each over input sets called in
    turn until their caches span 4x the L2 (so they come from HBM); prints
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
-   the phi3 serving, phi3 training, phi3 planned training, staleness-1 and
+   the phi3 serving, phi3 continuous serving (5b (c)), phi3 training, phi3
+   planned training, staleness-1 and
    failure-recovery training, portfolio (6e (a), (b)), Jamba serving and
    rwkv6-7b serving paths) and, last, ``{"ok": true, ...}``.
 
@@ -203,6 +223,12 @@ TOL_BF16 = {"attention": 2e-2, "swiglu": 3e-2}
 # full-width 2-layer logits, card (kernels, cuBLAS) vs CPU (plain versions):
 # fp32 sums over 3072 and 8192 terms in other orders through 2 layers
 TOL_LOGITS = 1e-3
+# full-width per-slot decode on the card against lockstep decode on the card
+# (5b (a)), and virtual stages against one stage (5b (b)): the same kernels
+# at batch 6 against batch 4 or groups of 3 rows (cuBLAS picks other
+# kernels), per-row against shared cache lengths; max |diff| / max |logit|,
+# 10x the 1.16e-06 read on an H100 for (b) (5.7e-07 for (a))
+TOL_SLOT_LOGITS = 1.2e-5
 # elementwise SwiGLU backward, kernel vs plain on the card: the same
 # expression; expf/tanhf and fused multiply-adds differ in the last bits of
 # values of order 10
@@ -1370,7 +1396,257 @@ def phase_serve(torch, ops, dev, card: str) -> dict:
     if device_ms is not None:
         print(f"  device busy {device_ms:.3f} ms of the {step_ms:.3f} ms decode step "
               f"({device_ms / step_ms:.1%}; idle {1 - device_ms / step_ms:.1%})")
-    return launches
+    return {"launches": launches, "step_ms": step_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: continuous and planned serving at full width
+# ---------------------------------------------------------------------------
+
+# the per-slot schedule of repro's run_serve_hetero: live slots at
+# shard_alloc (3, 1) (6 rows, rows 0-2 and 3 live), slot s admitted at wall
+# step SLOT_DELAY[s], SLOT_STEPS positions each, cache 64
+SLOT_ALLOC, SLOT_DELAY, SLOT_STEPS, SLOT_CACHE = (3, 1), (0, 1, 2, 1), 6, 64
+CONTINUOUS_ARGS = ["--continuous", "--devices", "8", "--requests", "12", "--prompt-len", "16",
+                   "--gen", "32", "--max-slots", "4"]
+
+
+def staggered_logits(torch, ops, ss, params, tokens, dev, per_step: dict):
+    """``tokens`` (4, SLOT_STEPS) through the slot step ``ss`` on the
+    staggered schedule (idle slots reset each wall step).  Returns {(slot,
+    position): logits row} and the largest |logit| of a padded row; checks
+    each step's launch counts against ``per_step``."""
+    from repro_torch.runtime.continuous import slot_rows
+    from repro_torch.runtime.serve import prepare_serve_states
+
+    rows = slot_rows(ss.spec.shard_alloc)
+    B, cfg = ss.spec.batch_global, ss.spec.cfg
+    pads = [r for r in range(B) if r not in rows]
+    states = prepare_serve_states(cfg, ss.spec.plan, B, SLOT_CACHE, dev)
+    out, pad_max = {}, 0.0
+    for w in range(SLOT_STEPS + max(SLOT_DELAY)):
+        tok, pos, reset = ([0] * B, [0] * B, [False] * B)
+        live = {}
+        for s, row in enumerate(rows):
+            p = w - SLOT_DELAY[s]
+            if not 0 <= p < SLOT_STEPS:
+                reset[row] = True
+                continue
+            tok[row], pos[row], reset[row] = int(tokens[s, p]), p, p == 0
+            live[s] = (row, p)
+        args = [torch.tensor(v, dtype=torch.int32, device=dev) for v in (tok, pos)]
+        ops.reset_launches()
+        logits, states = ss.step_fn(params, *args, reset, states)
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        if got != per_step:
+            raise AssertionError(f"slot step launches {got} != {per_step} (wall step {w})")
+        out.update({(s, p): logits[row].clone() for s, (row, p) in live.items()})
+        if pads:
+            pad_max = max(pad_max, float(logits[pads].abs().max()))
+    del states
+    return out, pad_max
+
+
+def profile_engine(torch, engine, B, rows, cache_len, dev, n_steps=8):
+    """Device busy time per engine step from a ``torch.profiler`` trace of
+    ``n_steps`` steps with every live row mid-cache (after 2 untraced
+    ones), the wall ms per step of ``n_steps`` untraced ones, and the host's
+    parts of a step timed alone: the row arrays to the card, the (B, V)
+    logits back, one host draw for each live row."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.continuous import _to_device, sample_token
+
+    tok, pos, reset = np.zeros(B, np.int32), np.zeros(B, np.int32), np.zeros(B, bool)
+    start = cache_len // 2
+    for p in range(start - 2, start):
+        pos[rows] = p
+        engine(tok, pos, reset)
+    t0 = time.perf_counter()
+    for p in range(start, start + n_steps):
+        pos[rows] = p
+        logits = engine(tok, pos, reset)
+    wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for p in range(start, start + n_steps):
+            pos[rows] = p
+            engine(tok, pos, reset)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    on_card = torch.from_numpy(logits).to(dev)
+    torch.cuda.synchronize()
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _to_device(tok, pos, dev)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        on_card.cpu().numpy()
+    d2h_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for i in range(n):
+        for r in rows:
+            sample_token(logits[r], 0, i, r)
+    sample_ms = (time.perf_counter() - t0) / n * 1e3
+    if busy_us <= 0:
+        print("  profiler trace holds no device time: device busy share not measured")
+    else:
+        print(f"  engine-step trace ({n_steps} steps): top kernels by device time")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    {e.self_device_time_total / n_steps / 1e3:8.3f} ms/step "
+                  f"{e.count // n_steps:5d} launches/step  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_us / n_steps / 1e3 if busy_us > 0 else None,
+            "h2d_ms": h2d_ms, "d2h_ms": d2h_ms, "sample_ms": sample_ms,
+            "logits_bytes": logits.nbytes}
+
+
+def check_continuous_kernels(torch, ops, dev) -> None:
+    """flash_decode and fused_swiglu against their plain versions at the
+    shapes phase 5b gives them: the launcher's engine (8 rows, cache 48, 4
+    live rows mid-cache, 4 padded at length 1) and the slot step of (a)
+    (6 rows, cache 64, 2 padded); the MLP at 6 rows and at (b)'s groups of
+    3."""
+    H, D, Fd, W = 32, 96, 8192, 3072
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    for B, S, lens in ((8, 48, [48, 30, 17, 5, 1, 1, 1, 1]),
+                       (6, 64, [64, 33, 6, 2, 1, 1])):
+        q, k, v = rnd(B, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        err = max_err(ops.flash_decode_op(q, k, v, ln), ops.plain_flash_decode(q, k, v, ln))
+        check(err, TOL_FP32, f"flash_decode B={B} H={H} cache {S} lengths {lens}")
+    w = (rnd(W, Fd, scale=W ** -0.5), rnd(W, Fd, scale=W ** -0.5), rnd(Fd, W, scale=Fd ** -0.5))
+    for T in (6, 3):
+        x = rnd(T, W, scale=1.0)
+        err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
+        check(err, TOL_FP32, f"fused_swiglu T={T} D={W} F={Fd}")
+
+
+def phase_continuous(torch, ops, dev, card: str, lockstep_ms: float) -> dict:
+    """5b: (a) staggered admission through the slot step at (3, 1) against
+    lockstep decode, (b) the same at 2 and 4 virtual stages, (c)
+    ``launch.serve --continuous`` in process, (d) its requests replayed with
+    the slot list reversed; the engine step's device-busy share and host
+    parts.  Returns the launcher run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.model import init_model
+    from repro_torch.runtime.continuous import ContinuousBatcher, engine_from_serve_step
+    from repro_torch.runtime.serve import build_serve_step, build_slot_serve_step, \
+        prepare_serve_states
+
+    cfg = get_config("phi3-mini-3.8b")
+    L = cfg.n_layers
+    none = {name: 0 for name in ops.LAUNCHES}
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (sum(SLOT_ALLOC), SLOT_STEPS),
+                           generator=torch.Generator().manual_seed(5))
+
+    print("phase 5b: the path's kernels against their plain versions at its shapes")
+    check_continuous_kernels(torch, ops, dev)
+
+    print(f"phase 5b (a): staggered admission at shard_alloc {SLOT_ALLOC} vs lockstep decode")
+    ref = build_serve_step(cfg, batch_global=sum(SLOT_ALLOC), cache_len=SLOT_CACHE)
+    states = prepare_serve_states(cfg, ref.spec.plan, sum(SLOT_ALLOC), SLOT_CACHE, dev)
+    want = []
+    for t in range(SLOT_STEPS):
+        lg, states = ref.step_fn(params, tokens[:, t].to(dev), t, states)
+        want.append(lg.clone())
+    del states
+    scale = max(float(w.abs().max()) for w in want)
+    ss = build_slot_serve_step(cfg, cache_len=SLOT_CACHE, shard_alloc=SLOT_ALLOC)
+    base, pad_max = staggered_logits(torch, ops, ss, params, tokens, dev,
+                                     dict(none, flash_decode=L, fused_swiglu=L))
+    err = max(float((row - want[p][s]).abs().max()) for (s, p), row in base.items()) / scale
+    check(err, TOL_SLOT_LOGITS, f"{len(base)} (slot, position) logits rows vs lockstep "
+          f"batch {sum(SLOT_ALLOC)}, max|diff| / max|logit| ({scale:.4f})")
+    print(f"  padded rows: max |logit| {pad_max} (must be 0); launches per step "
+          f"{L} flash_decode, {L} fused_swiglu: held")
+    if pad_max != 0.0:
+        raise AssertionError(f"padded slot rows carry logits up to {pad_max}")
+
+    print("phase 5b (b): the same schedule on 2 and 4 virtual stages, 2 groups")
+    for stage in (2, 4):
+        vs = build_slot_serve_step(cfg, cache_len=SLOT_CACHE, shard_alloc=SLOT_ALLOC,
+                                   stage=stage, n_groups=2)
+        got, pad_max = staggered_logits(torch, ops, vs, params, tokens, dev,
+                                        dict(none, flash_decode=2 * L, fused_swiglu=2 * L))
+        err = max(float((got[k] - base[k]).abs().max()) for k in base) / scale
+        check(err, TOL_SLOT_LOGITS, f"stage {stage} x 2 groups vs stage 1, "
+              "max|diff| / max|logit|")
+        if pad_max != 0.0:
+            raise AssertionError(f"stage {stage}: padded slot rows carry logits {pad_max}")
+    del params, want, base, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("phase 5b (c): python -m repro_torch.launch.serve " + " ".join(CONTINUOUS_ARGS))
+    ops.reset_launches()
+    res = launcher.main(CONTINUOUS_ARGS)
+    launches = dict(ops.LAUNCHES)
+    plan, done, reqs = res["plan"], res["completions"], res["requests"]
+    calls = res["warmup_calls"] + res["steps"]
+    expect = dict(none, flash_decode=L * calls, fused_swiglu=L * calls)
+    print(f"  launches {launches} (expected {expect}: {res['warmup_calls']} warm-up calls + "
+          f"{res['steps']} engine steps)")
+    if launches != expect:
+        raise AssertionError(f"continuous serving launch counts {launches} != {expect}")
+    gen = int(CONTINUOUS_ARGS[CONTINUOUS_ARGS.index("--gen") + 1])
+    if len(done) != len(reqs) or any(len(c.tokens) != gen for c in done):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests completed with "
+                             f"{sorted({len(c.tokens) for c in done})} tokens, not {gen}")
+    if any(not 0 <= t < cfg.vocab_size for c in done for t in c.tokens):
+        raise AssertionError("a served token lies outside the vocabulary")
+    step_ms = sum(res["step_seconds"]) / res["steps"] * 1e3
+    draw_ms = sum(res["draw_seconds"]) / res["steps"] * 1e3
+    p50, p95, p99 = (v * 1e3 for v in res["latency_pct"])
+    q50, q95, q99 = (v * 1e3 for v in res["predicted_pct"])
+    print(f"continuous serve phi3-mini-3.8b full width fp32: plan stage {plan.stage} tp "
+          f"{plan.tp} alloc {plan.shard_alloc} caps {plan.max_slots}, modeled p99 "
+          f"{plan.predicted_p99 * 1e3:.3f} ms (Jetson NX/TX2 model); {len(done)} requests / "
+          f"{sum(len(c.tokens) for c in done)} tokens in {res['steps']} engine steps; engine "
+          f"{step_ms:.3f} ms/step (probe {res['probe_step_s'] * 1e3:.3f}) against lockstep "
+          f"{lockstep_ms:.3f} ms/step (phase 5), host draws {draw_ms:.3f} ms/step (probe "
+          f"{res['probe_draw_s'] * 1e3:.3f}); on the clock of engine and draws: offered "
+          f"{res['rate']:.1f} tok/s, served {res['tok_per_s']:.1f} tok/s; a smoke trace, "
+          f"its token latency p50/p95/p99 {p50:.3f}/{p95:.3f}/{p99:.3f} ms (predicted "
+          f"{q50:.3f}/{q95:.3f}/{q99:.3f} ms); card {card}")
+
+    print("phase 5b (d): the same requests through a fresh engine, slot list reversed")
+    ss = res["slot_step"]
+    engine = engine_from_serve_step(ss, res["params"], dev)
+    bat = ContinuousBatcher(engine, slots=res["slots"][::-1], batch=ss.spec.batch_global,
+                            cache_len=ss.spec.cache_len, seed=0)
+    again = {c.rid: c.tokens for c in bat.run(reqs)}
+    first = {c.rid: c.tokens for c in done}
+    differ = [rid for rid in first if again.get(rid) != first[rid]]
+    print(f"  {len(first)} requests, {bat.steps} engine steps (first run {res['steps']}): "
+          f"{len(first) - len(differ)} token streams identical")
+    if differ or set(again) != set(first):
+        raise AssertionError(f"requests {differ} drew other tokens with the slots reversed")
+
+    prof = profile_engine(torch, engine, ss.spec.batch_global, res["slots"],
+                          ss.spec.cache_len, dev)
+    busy = prof["busy_ms"]
+    print(f"  engine step {prof['wall_ms']:.3f} ms wall with {len(res['slots'])} live rows; "
+          + (f"device busy {busy:.3f} ms ({busy / prof['wall_ms']:.1%}; idle "
+             f"{1 - busy / prof['wall_ms']:.1%}); " if busy is not None else "")
+          + f"host parts: row arrays to the card {prof['h2d_ms']:.3f} ms, logits "
+          f"({prof['logits_bytes'] / 1e6:.3f} MB) back {prof['d2h_ms']:.3f} ms, "
+          f"{len(res['slots'])} host draws {prof['sample_ms']:.3f} ms; card {card}")
+    del res, engine, bat, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2898,6 +3174,10 @@ def main() -> int:
     phase_parity(torch, dev)
     print("phase 5: serve at full width")
     serve = phase_serve(torch, ops, dev, card)
+    gc.collect()                      # phase 5's state is gone before 5b starts
+    torch.cuda.empty_cache()
+    print("phase 5b: continuous and planned serving at full width")
+    continuous = phase_continuous(torch, ops, dev, card, serve["step_ms"])
     print("phase 6a: full-width training parity, 2 layers, card vs CPU")
     phase_train_parity(torch, dev)
     print("phase 6b: train at full width")
@@ -2934,7 +3214,9 @@ def main() -> int:
     print("phase 9d: flash_decode's device time at phase 3's and 3d's and the long shapes")
     phase_decode_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     for e in entries:
-        by_path = {"serve": serve[e["name"]], "train": train["launches"][e["name"]],
+        by_path = {"serve": serve["launches"][e["name"]],
+                   "continuous_serve": continuous["launches"][e["name"]],
+                   "train": train["launches"][e["name"]],
                    "plan_train": plan_train["launches"][e["name"]],
                    "stale_train": stale_train["launches"][e["name"]],
                    "fail_train": fail_train["launches"][e["name"]],

@@ -12,9 +12,9 @@ heterogeneous batch allocation), GPipe-style PP (compute-balanced, ignores
 boundary activations), PipeDream / Dapple planners (homogeneous-cluster
 assumptions, no memory budget), and a HetPipe-style HDP arrangement.
 
-A copy of ``repro.core.planner``'s training half, with
-``replan_for_membership``.  Its serving half (``plan_serve``, ``ServePlan``
-and their pricing) comes with planned serving, a later slice of the port.
+A copy of ``repro.core.planner``: the training half, with
+``replan_for_membership``, and the serving half (``serve_stage_candidates``,
+``ServePlan``, ``plan_serve``, ``plan_serve_uniform`` and their pricing).
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ from .allocation import Allocation, AllocationError, allocate_microbatch
 from .costmodel import (CompressionConfig, Step, allreduce_time,
                         bucketed_allreduce_residual,
                         compressed_allreduce_time, compressed_comm_time,
+                        decode_boundary_time, decode_step_time,
                         hpp_round_latency, hpp_volume,
-                        kp_policy, parse_compress, round_latency,
-                        stage_memory)
+                        kp_policy, parse_compress, queue_wait_quantile,
+                        round_latency, serve_stage_slots, stage_memory)
 from .profiler import Profile
 
 
@@ -516,3 +517,277 @@ def plan_gpipe_sub(profile: Profile, group, global_batch: int,
         if p < P - 1:
             steps.append(_comm_step(profile, micro_batch, j, (d,), (group[p + 1],)))
     return round_latency(tuple(steps), M)
+
+
+# ---------------------------------------------------------------------------
+# Serve-mode planning (DESIGN.md §11): stage/tp/split candidates priced by
+# predicted per-token latency percentiles under a target offered load
+# ---------------------------------------------------------------------------
+
+
+def serve_stage_candidates(model_axis: int, n_heads: int) -> list[int]:
+    """Lowerable stage counts for decode: every divisor of ``model_axis``
+    whose tensor-parallel width divides the query head count.
+
+    Replaces the old hard-coded {1, 2, 4, 8, 16} probe — a 6-device model
+    axis now yields (1, 2, 3, 6) instead of falling through to the
+    worst case.  Smallest-first: serve prefers TP (stage=1) when feasible.
+    """
+    out = [s for s in range(1, model_axis + 1)
+           if model_axis % s == 0 and n_heads % (model_axis // s) == 0]
+    return out or [model_axis]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """A planner-driven decode configuration (the serving analogue of
+    ``Plan``): mesh refinement (stage × tp), the heterogeneous slot split
+    across data shards, and the latency percentiles it was priced at.
+
+    Consumed by ``runtime.serve.build_slot_serve_step`` (``stage`` +
+    ``shard_alloc``) and ``runtime.continuous.ContinuousBatcher``
+    (``shard_alloc`` + ``cache_len`` as the admission-control cap).
+    """
+
+    arch: str
+    stage: int
+    tp: int
+    cuts: tuple[int, ...]           # layer cut points, len == stage + 1
+    shard_alloc: tuple[int, ...]    # decode slots per dp shard (unbalanced)
+    max_slots: tuple[int, ...]      # per-shard admission cap (memory model)
+    cache_len: int
+    seq_len: int                    # profile row the per-token times divide
+    arrival_rate: float             # offered load priced against (tokens/s)
+    step_time: float                # engine-step service period (s)
+    token_latency: float            # one token's pipeline traversal (s)
+    predicted_p50: float
+    predicted_p95: float
+    predicted_p99: float
+    planner: str = "asteroid-serve"
+    plan_time: float = 0.0
+    compress: CompressionConfig | None = None
+
+    @property
+    def slots(self) -> int:
+        return sum(self.shard_alloc)
+
+    @property
+    def throughput(self) -> float:
+        """Decode capacity (tokens/s): every engine step retires one token
+        from each live slot."""
+        return self.slots / self.step_time if self.step_time > 0 else 0.0
+
+    @property
+    def utilization(self) -> float:
+        return self.arrival_rate / self.throughput if self.throughput else float("inf")
+
+
+def _serve_cuts(L: int, stage: int) -> tuple[int, ...]:
+    """Equal contiguous layer split — what the serve runtime lowers (periods
+    padded to the stage count and divided evenly)."""
+    return tuple(round(p * L / stage) for p in range(stage + 1))
+
+
+def _shard_stage_groups(shard: int, model_axis: int, stage: int,
+                        tp: int) -> list[tuple[int, ...]]:
+    """Device ranks of each pipeline stage of one dp shard: shards occupy
+    consecutive ``model_axis``-sized blocks of the cluster order, stages
+    consecutive ``tp``-sized sub-blocks."""
+    base = shard * model_axis
+    return [tuple(range(base + p * tp, base + (p + 1) * tp))
+            for p in range(stage)]
+
+
+def _price_serve_shard(profile: Profile, shard: int, y: int, *, stage: int,
+                       tp: int, cuts, seq_len: int, compress,
+                       pipelined: bool) -> tuple[float, float]:
+    """(service period, token traversal latency) of one dp shard running
+    ``y`` decode slots through its stage × tp device block.
+
+    Stage compute is the measured per-token forward slice divided by the
+    tensor-parallel width (TP collectives are not charged — decode moments
+    are bandwidth-bound on the boundary hops, not the intra-stage psum);
+    boundary hops move one token's activation under the §10 link model.
+    When the runtime group-streams the local batch (``pipelined``), stages
+    overlap across groups and the service period is the slowest step; the
+    traversal latency always sums the full path.
+    """
+    groups = _shard_stage_groups(shard, model_axis=stage * tp, stage=stage,
+                                 tp=tp)
+    table = profile.table
+    comp, hops = [], []
+    for p in range(stage):
+        i, j = cuts[p], cuts[p + 1]
+        t = max(decode_step_time(profile, d, y, i, j, seq_len)
+                for d in groups[p]) / tp
+        comp.append(t)
+        if p < stage - 1:
+            bw = min(profile.cluster.bw(a, b)
+                     for a in groups[p] for b in groups[p + 1])
+            hops.append(decode_boundary_time(
+                table, j, y, seq_len, bw, compress,
+                _group_flops(profile, groups[p]),
+                _group_flops(profile, groups[p + 1])))
+    token_latency = sum(comp) + sum(hops)
+    period = max(comp + hops) if (pipelined and stage > 1) else token_latency
+    return period, token_latency
+
+
+def _serve_percentiles(step_time: float, token_latency: float, slots: int,
+                       arrival_rate: float, levels=(0.5, 0.95, 0.99)):
+    """M/M/1 tail on the aggregate service rate: a token waits for a free
+    slot, then traverses the pipeline once."""
+    if step_time <= 0 or slots <= 0:
+        return tuple(float("inf") for _ in levels)
+    mu = slots / step_time
+    return tuple(token_latency + queue_wait_quantile(arrival_rate, mu, p)
+                 for p in levels)
+
+
+def _shard_slot_cap(profile: Profile, shard: int, *, stage: int, tp: int,
+                    cuts, cache_len: int, seq_len: int,
+                    mem_fraction: float) -> int:
+    """Admission-control cap for one dp shard: every stage must fit its
+    params plus the per-slot cache slice (both 1/tp per device)."""
+    groups = _shard_stage_groups(shard, model_axis=stage * tp, stage=stage,
+                                 tp=tp)
+    cap = profile.max_batch
+    for p in range(stage):
+        i, j = cuts[p], cuts[p + 1]
+        mem = min(profile.cluster.devices[d].mem_bytes for d in groups[p])
+        cap = min(cap, serve_stage_slots(profile.table, i, j, mem * tp,
+                                         cache_len, seq_len,
+                                         mem_fraction=mem_fraction))
+    return max(cap, 0)
+
+
+def _price_serve_alloc(profile, alloc, *, stage, tp, cuts, seq_len,
+                       arrival_rate, compress, pipelined=True):
+    """(step_time, token_latency, (p50, p95, p99)) for a full slot split."""
+    periods, lats = [], []
+    for g, y in enumerate(alloc):
+        if y <= 0:
+            continue
+        per, lat = _price_serve_shard(profile, g, y, stage=stage, tp=tp,
+                                      cuts=cuts, seq_len=seq_len,
+                                      compress=compress, pipelined=pipelined)
+        periods.append(per)
+        lats.append(lat)
+    if not periods:
+        inf = float("inf")
+        return inf, inf, (inf, inf, inf)
+    # SPMD lockstep: one jitted step advances every shard concurrently, so
+    # the engine period is the slowest shard's; a token's traversal is its
+    # own shard's path but the planner reports the worst case.
+    step_time = max(periods)
+    token_latency = max(lats)
+    pct = _serve_percentiles(step_time, token_latency, sum(alloc),
+                             arrival_rate)
+    return step_time, token_latency, pct
+
+
+def plan_serve(profile: Profile, arrival_rate: float, *, dp_shards: int,
+               model_axis: int, n_heads: int, cache_len: int, seq_len: int,
+               arch: str = "", compress=None, mem_fraction: float = 0.9,
+               allowed_stages=None, uniform: bool = False,
+               legacy_stage_probe: bool = False) -> ServePlan:
+    """Serve-mode Algorithm 2: enumerate (stage, tp, slot split) candidates
+    and keep the one minimizing predicted per-token p99 latency under the
+    offered load.
+
+    For each lowerable stage count (divisors of ``model_axis`` whose tp
+    divides the head count) the slot split across dp shards is grown
+    greedily — each new slot goes to the shard that minimizes the resulting
+    p99 — under the Eq.-3-style admission cap (params + slots × per-token
+    cache per device).  Faster shards absorb more slots: the serving
+    analogue of Algorithm 1's capacity-proportional micro-batch split.
+
+    ``uniform=True`` restricts the split to equal per-shard counts (the
+    pre-planner baseline the bench compares against);
+    ``legacy_stage_probe=True`` additionally restores the old
+    {1, 2, 4, 8, 16} stage sweep.
+    """
+    t0 = time.perf_counter()
+    compress = parse_compress(compress)
+    if legacy_stage_probe:
+        cands = [s for s in (1, 2, 4, 8, 16)
+                 if model_axis % s == 0 and n_heads % (model_axis // s) == 0]
+        cands = cands[:1] or [model_axis]
+    else:
+        cands = serve_stage_candidates(model_axis, n_heads)
+    if allowed_stages is not None:
+        cands = [s for s in cands if s in allowed_stages] or cands
+    n_dev = len(profile.cluster.devices)
+    if dp_shards * model_axis > n_dev:
+        raise AllocationError(
+            f"serve mesh needs {dp_shards * model_axis} devices, cluster "
+            f"has {n_dev}")
+
+    best = None
+    for stage in cands:
+        tp = model_axis // stage
+        cuts = _serve_cuts(profile.table.L, stage)
+        caps = [_shard_slot_cap(profile, g, stage=stage, tp=tp, cuts=cuts,
+                                cache_len=cache_len, seq_len=seq_len,
+                                mem_fraction=mem_fraction)
+                for g in range(dp_shards)]
+        if sum(caps) == 0:
+            continue
+        price = lambda a: _price_serve_alloc(
+            profile, a, stage=stage, tp=tp, cuts=cuts, seq_len=seq_len,
+            arrival_rate=arrival_rate, compress=compress)
+        if uniform:
+            cap = min(c for c in caps)
+            cand_alloc, cand_cost = None, None
+            for y in range(1, cap + 1):
+                alloc = [y] * dp_shards
+                st, lat, pct = price(alloc)
+                if cand_cost is None or pct[2] < cand_cost[2][2]:
+                    cand_alloc, cand_cost = alloc, (st, lat, pct)
+            if cand_alloc is None:
+                continue
+            alloc, (st, lat, pct) = cand_alloc, cand_cost
+        else:
+            alloc = [0] * dp_shards
+            st, lat, pct = price(alloc)
+            while True:
+                step = None
+                for g in range(dp_shards):
+                    if alloc[g] >= caps[g]:
+                        continue
+                    trial = list(alloc)
+                    trial[g] += 1
+                    cost = price(trial)
+                    if step is None or cost[2][2] < step[1][2][2]:
+                        step = (trial, cost)
+                if step is None:
+                    break
+                trial, cost = step
+                if cost[2][2] >= pct[2] and pct[2] < float("inf"):
+                    break                     # adding slots no longer helps
+                alloc, (st, lat, pct) = trial, cost
+            if sum(alloc) == 0:
+                continue
+        plan = ServePlan(
+            arch=arch, stage=stage, tp=tp, cuts=cuts,
+            shard_alloc=tuple(alloc), max_slots=tuple(caps),
+            cache_len=cache_len, seq_len=seq_len,
+            arrival_rate=arrival_rate, step_time=st,
+            token_latency=lat, predicted_p50=pct[0], predicted_p95=pct[1],
+            predicted_p99=pct[2],
+            planner="uniform-serve" if uniform else "asteroid-serve",
+            compress=compress)
+        if best is None or plan.predicted_p99 < best.predicted_p99:
+            best = plan
+    if best is None:
+        raise AllocationError("no feasible serve plan (memory caps exhaust "
+                              "every stage candidate)")
+    return dataclasses.replace(best, plan_time=time.perf_counter() - t0)
+
+
+def plan_serve_uniform(profile: Profile, arrival_rate: float,
+                       **kw) -> ServePlan:
+    """The pre-planner baseline: legacy power-of-two stage probe and an
+    equal slot count on every dp shard."""
+    return plan_serve(profile, arrival_rate, uniform=True,
+                      legacy_stage_probe=True, **kw)

@@ -13,11 +13,11 @@ acts in lockstep; intra-group DP runs concurrently so an op costs the max
 over members, which is exactly the planner's Ef/Eb).  Each adjacent-stage
 link carries one transfer at a time per direction.
 
-A copy of ``repro.core.simulator`` less its serving half
-(``reprice_serve_plan``, ``serve_prediction_gap``), which needs the serving
-planner, a later slice of the port.  ``reprice_plan`` refuses a profile
-with fewer devices than the plan names with a ``ValueError`` where
-``repro``'s copy fails with an ``IndexError`` deep in the pricing.
+A copy of ``repro.core.simulator``, its serving half
+(``reprice_serve_plan``, ``serve_prediction_gap``) included.
+``reprice_plan`` refuses a profile with fewer devices than the plan names
+with a ``ValueError`` where ``repro``'s copy fails with an ``IndexError``
+deep in the pricing.
 """
 
 from __future__ import annotations
@@ -328,4 +328,41 @@ def observed_gap(plan: Plan, reference: Profile, observed_s: float) -> dict:
         "observed_s": observed_s,
         "gap_ratio": (observed_s / repriced.latency
                       if repriced.latency > 0 else float("inf")),
+    }
+
+
+def reprice_serve_plan(plan, profile: Profile):
+    """Re-price a ``ServePlan``'s latency figures under ``profile``.
+
+    The serving analogue of ``reprice_plan``: keeps the plan's decisions —
+    stage count, tp width, layer cuts, per-shard slot split — and
+    recomputes step_time / token_latency / percentiles from ``profile``'s
+    measured per-token forward slices and the §10 link model, at the same
+    offered load.  This is how a plan made on the analytic profile is asked
+    what it would cost on the measured one.
+    """
+    from .planner import _price_serve_alloc
+
+    st, lat, pct = _price_serve_alloc(
+        profile, plan.shard_alloc, stage=plan.stage, tp=plan.tp,
+        cuts=plan.cuts, seq_len=plan.seq_len,
+        arrival_rate=plan.arrival_rate, compress=plan.compress)
+    return dataclasses.replace(plan, step_time=st, token_latency=lat,
+                               predicted_p50=pct[0], predicted_p95=pct[1],
+                               predicted_p99=pct[2])
+
+
+def serve_prediction_gap(plan, reference: Profile) -> dict:
+    """Predicted-vs-repriced gap for a ``ServePlan`` (the p99 analogue of
+    ``prediction_gap``): re-prices the plan's slot split on ``reference``
+    and reports the p99 ratio the planning profile mispriced by."""
+    repriced = reprice_serve_plan(plan, reference)
+    return {
+        "reference_source": reference.source,
+        "predicted_p99_s": plan.predicted_p99,
+        "reference_p99_s": repriced.predicted_p99,
+        "predicted_step_s": plan.step_time,
+        "reference_step_s": repriced.step_time,
+        "gap_ratio": (repriced.predicted_p99 / plan.predicted_p99
+                      if plan.predicted_p99 > 0 else float("inf")),
     }

@@ -13,6 +13,17 @@ import torch
 from . import _build
 
 
+def check_cache_len(q, cache_len) -> None:
+    """A tensor ``cache_len`` must be (B,) int32 on q's device; raises
+    ``ValueError`` otherwise (an int is any length)."""
+    if isinstance(cache_len, torch.Tensor) and (
+            cache_len.shape != (q.shape[0],) or cache_len.dtype != torch.int32
+            or cache_len.device != q.device):
+        raise ValueError("flash_decode: a tensor cache_len is (B,) int32 on q's device, "
+                         f"got {tuple(cache_len.shape)} {cache_len.dtype} on "
+                         f"{cache_len.device}")
+
+
 def flash_decode(q, k_cache, v_cache, cache_len, *, scale: float | None = None,
                  window: int | None = None, softcap: float | None = None):
     """q: (B, H, D); k/v_cache: (B, S, Hkv, D); cache_len: int or (B,) int32.
@@ -28,10 +39,8 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, scale: float | None = None,
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
     if D > 256 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
         raise ValueError("flash_decode: head_dim must be <= 256 with unit stride")
+    check_cache_len(q, cache_len)
     if isinstance(cache_len, torch.Tensor):
-        if cache_len.shape != (B,) or cache_len.dtype != torch.int32 \
-                or cache_len.device != q.device:
-            raise ValueError("flash_decode: a tensor cache_len is (B,) int32 on q's device")
         lens, len_scalar = cache_len.contiguous(), 0
     else:
         lens, len_scalar = None, int(cache_len)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ._build import LAUNCHES
-from .decode_attention import flash_decode
+from .decode_attention import check_cache_len, flash_decode
 from .flash_attention import FlashAttentionFn, flash_attention
 from .fused_swiglu import FusedSwigluFn, fused_swiglu
 from .mamba_scan import mamba_scan
@@ -103,7 +103,10 @@ def flash_attention_op(q, k, v, *, scale=None, causal=True, window=None, softcap
 
 def flash_decode_op(q, k_cache, v_cache, cache_len, **kw):
     """q: (B, H, D); caches: (B, S, Hkv, D); cache_len: int or (B,) int32.
-    Forward only: decoding is never differentiated."""
+    Forward only: decoding is never differentiated.  The kernel's contract
+    on a tensor ``cache_len`` is checked on both routes, so a CPU caller that
+    would fail on the card fails here too."""
+    check_cache_len(q, cache_len)
     if q.device.type == "cpu":
         return plain_flash_decode(q, k_cache, v_cache, cache_len, **kw)
     return flash_decode(q, k_cache, v_cache, cache_len, **kw)

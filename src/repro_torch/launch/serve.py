@@ -1,4 +1,4 @@
-"""Serving launcher: batched lockstep autoregressive decode on one card.
+"""Serving launcher: lockstep or continuous batched decode on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
         --smoke --batch 8 --prompt-len 16 --gen 32            # on the card
@@ -8,9 +8,26 @@
 The lockstep path of ``repro.launch.serve``: random weights from seed 0,
 a random prompt fed one token per decode step, then ``--gen`` tokens
 sampled from ``softmax(logits / T)`` with a seeded ``torch.Generator`` on
-the device (not ``repro``'s JAX draws, so the tokens differ).  Runs on
+the device (not ``repro``'s JAX draws, so the tokens differ).
+
+Continuous batching (``--continuous``, ``repro``'s ``run_continuous``):
+``plan_serve`` picks the stage count and the uneven slot split across data
+shards against a *modeled* edge cluster (Jetson NX / TX2 shard blocks,
+``Profile.analytic``), ``build_slot_serve_step`` lowers it onto the card
+(``--devices N``: a data axis of max(1, N // 4) and a model axis of the
+rest, all virtual), and an open-loop Poisson stream is served through
+``ContinuousBatcher``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --devices 8 \\
+        --requests 12 --prompt-len 16 --gen 32 --max-slots 4      # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --continuous --devices 8 --requests 4 --gen 4
+
+The plan's latencies are the Jetson model's; the engine step, tok/s and
+token-latency percentiles are measured where the step runs, on a clock that
+advances by each engine step and the host draws after it.  Runs on
 ``cuda`` unless ``--device cpu`` is given; without a card it stops rather
-than running on the CPU.
+than running on the CPU.  ``--seq-shard`` needs a data axis and is refused.
 """
 
 from __future__ import annotations
@@ -33,16 +50,39 @@ def _parse(argv):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
     ap.add_argument("--seq-shard", action="store_true", help="not ported yet")
-    ap.add_argument("--continuous", action="store_true", help="not ported yet")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="--continuous: virtual devices, a data axis of "
+                         "max(1, N // 4) and the model axis the rest")
+    ap.add_argument("--continuous", action="store_true",
+                    help="planner-driven continuous batching "
+                         "(plan_serve -> slot step -> Poisson stream)")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="--continuous: requests in the Poisson trace")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="--continuous: offered load (tokens/s); default "
+                         "derives from the measured step time and --util")
+    ap.add_argument("--util", type=float, default=0.6,
+                    help="--continuous: target utilization for the "
+                         "derived offered load")
+    ap.add_argument("--max-slots", type=int, default=4,
+                    help="--continuous: per-shard slot cap handed to the "
+                         "planner as profile.max_batch")
     args = ap.parse_args(argv)
-    if args.continuous or args.seq_shard:
-        ap.error("--continuous and --seq-shard are not ported yet; the port "
-                 "serves lockstep batches on one card")
+    if args.seq_shard:
+        ap.error("--seq-shard is not ported yet: it shards the cache over a data "
+                 "axis, which the port does not have")
     if args.prompt_len < 1 or args.gen < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
+    if args.devices < 1 or args.requests < 1 or args.max_slots < 1 \
+            or not 0 < args.util or args.rate < 0:
+        ap.error("--devices, --requests and --max-slots must be >= 1, --util > 0, "
+                 "--rate >= 0")
     if args.temperature <= 0:
         ap.error("--temperature must be > 0")
     return args
+
+
+PROBE_STEPS = 5          # --continuous: engine steps timed for the offered load
 
 
 def _sync(device) -> None:
@@ -85,8 +125,127 @@ def lockstep_decode(cfg, params, *, batch: int, prompt_len: int, gen: int,
             "tok_per_s": gen_tokens / dt}
 
 
+def serve_plan(cfg, *, dp: int, model_axis: int, cache_len: int, max_slots: int,
+               util: float):
+    """``plan_serve`` on the modeled edge cluster of ``repro``'s launcher:
+    data shard d is a block of ``model_axis`` Jetson NX (d even) or TX2 (d
+    odd) devices on 100 Mbps links, priced by ``Profile.analytic`` with
+    ``max_slots`` as the per-shard cap, at ``util`` of the equal-split
+    capacity (so the greedy split has queueing pressure to plan against)."""
+    from repro_torch.core.hardware import JETSON_NX, JETSON_TX2, MBPS_100, Cluster
+    from repro_torch.core.planner import (_price_serve_alloc, _serve_cuts,
+                                          plan_serve, serve_stage_candidates)
+    from repro_torch.core.profiler import LayerTable, Profile
+    from repro_torch.runtime.serve import serve_head_count
+
+    devs = tuple((JETSON_NX if d % 2 == 0 else JETSON_TX2,) * model_axis
+                 for d in range(dp))
+    cluster = Cluster(sum(devs, ()), bandwidth=MBPS_100)
+    table = LayerTable.from_model_config(cfg, seq_len=cache_len)
+    prof = Profile.analytic(table, cluster, max_batch=max_slots)
+    stage0 = serve_stage_candidates(model_axis, serve_head_count(cfg))[0]
+    cuts0 = _serve_cuts(table.L, stage0)
+    cap = 0.0
+    for y in range(1, max_slots + 1):
+        st, _, _ = _price_serve_alloc(prof, [y] * dp, stage=stage0,
+                                      tp=model_axis // stage0, cuts=cuts0,
+                                      seq_len=cache_len, arrival_rate=0.0,
+                                      compress=None)
+        cap = max(cap, dp * y / st if st > 0 else 0.0)
+    return plan_serve(prof, util * cap, dp_shards=dp, model_axis=model_axis,
+                      n_heads=serve_head_count(cfg), cache_len=cache_len,
+                      seq_len=cache_len, arch=cfg.name)
+
+
+def run_continuous(args, cfg, device, dev_name: str) -> dict:
+    """Planner-driven continuous batching on one card (``repro``'s
+    ``run_continuous``).  Returns the plan, the slot step, the weights, the
+    requests, the completions, the engine's step times and the figures
+    printed."""
+    from repro_torch.core.costmodel import serve_latency_quantile
+    from repro_torch.models.model import init_model
+    from repro_torch.runtime.continuous import (ContinuousBatcher,
+                                                engine_from_serve_step,
+                                                poisson_requests, sample_token,
+                                                slot_rows)
+    from repro_torch.runtime.serve import build_slot_serve_step
+
+    dp = max(1, args.devices // 4)
+    model_axis = args.devices // dp
+    cache_len = args.prompt_len + args.gen
+    plan = serve_plan(cfg, dp=dp, model_axis=model_axis, cache_len=cache_len,
+                      max_slots=args.max_slots, util=args.util)
+    print(f"serve plan: stage={plan.stage} tp={plan.tp} alloc={plan.shard_alloc} "
+          f"caps={plan.max_slots} modeled p99={plan.predicted_p99 * 1e3:.2f}ms "
+          f"(Jetson NX/TX2 model, {dp} x {model_axis} devices)")
+
+    ss = build_slot_serve_step(cfg, cache_len=cache_len, shard_alloc=plan.shard_alloc,
+                               stage=plan.stage, model_axis=model_axis)
+    params = init_model(torch.Generator(device=device).manual_seed(0), cfg, device)
+    engine = engine_from_serve_step(ss, params, device)
+
+    B = ss.spec.batch_global
+    slots = slot_rows(plan.shard_alloc)
+    zeros = np.zeros(B, np.int32)
+    engine(zeros, zeros, np.ones(B, bool))                     # warm-up
+    probes = []                     # one step on a shared host can be far off
+    for _ in range(PROBE_STEPS):
+        t0 = time.perf_counter()
+        logits = engine(zeros, zeros, np.zeros(B, bool))       # the host copy waits
+        t1 = time.perf_counter()
+        for r in slots:
+            sample_token(logits[r], 0, r, 0)
+        probes.append((t1 - t0, time.perf_counter() - t1))
+    step_s, draw_s = (float(np.median(v)) for v in zip(*probes))
+    service_s = step_s + draw_s
+    rate = args.rate or args.util * plan.slots / service_s
+    print(f"engine step {step_s * 1e3:.3f} ms + {len(slots)} host draws "
+          f"{draw_s * 1e3:.3f} ms (medians of {PROBE_STEPS}) on {dev_name} "
+          f"({B} rows, {plan.slots} live) -> "
+          f"offered load {rate:.1f} tok/s ({args.util:.0%} of capacity)")
+
+    reqs = poisson_requests(rate / args.gen, horizon=args.requests * args.gen / rate,
+                            n_tokens=args.gen, seed=0, vocab=cfg.vocab_size)
+    if not reqs:
+        raise SystemExit("the Poisson trace holds no request: raise --requests")
+    bat = ContinuousBatcher(engine, slots=slots, batch=B, cache_len=cache_len, seed=0,
+                            draws_on_clock=True)
+    done = bat.run(reqs)
+    lats = np.array([lat for c in done for lat in c.token_latencies])
+    total = sum(len(c.tokens) for c in done)
+    span = max(c.finish for c in done) - min(c.arrival for c in done)
+    pct = np.percentile(lats, [50, 95, 99])
+    pred = [serve_latency_quantile(service_s, plan.slots, rate, p)
+            for p in (0.5, 0.95, 0.99)]
+    mean_step, mean_draw = float(np.mean(bat.step_seconds)), float(np.mean(bat.draw_seconds))
+    print(f"served {len(done)} requests / {total} tokens in {bat.steps} steps: "
+          f"{total / span:.1f} tok/s on {dev_name} (clock: engine + host draws); "
+          f"engine {mean_step * 1e3:.3f} ms/step, draws {mean_draw * 1e3:.3f} ms/step")
+    print(f"token latency p50/p95/p99 = {pct[0] * 1e3:.3f}/{pct[1] * 1e3:.3f}/"
+          f"{pct[2] * 1e3:.3f} ms (predicted from the measured step and draws: "
+          f"{pred[0] * 1e3:.3f}/{pred[1] * 1e3:.3f}/{pred[2] * 1e3:.3f} ms)")
+    # a token's latency runs from its slot's last token (or admission): the
+    # wait for a free slot is the admission wait, which the first token adds
+    admit = np.array([max(0.0, c.finish - sum(c.token_latencies) - c.arrival) for c in done])
+    first = admit + np.array([c.token_latencies[0] for c in done])
+    wait_pct, ttft_pct = np.percentile(admit, [50, 95, 99]), np.percentile(first, [50, 95, 99])
+    print(f"admission wait p50/p95/p99 = {'/'.join(f'{v * 1e3:.3f}' for v in wait_pct)} ms; "
+          f"first token p50/p95/p99 = {'/'.join(f'{v * 1e3:.3f}' for v in ttft_pct)} ms "
+          f"after arrival")
+    print("done")
+    return {"plan": plan, "slot_step": ss, "params": params, "requests": reqs,
+            "slots": slots, "completions": done, "step_seconds": list(bat.step_seconds),
+            "draw_seconds": list(bat.draw_seconds), "steps": bat.steps,
+            "warmup_calls": 1 + PROBE_STEPS,
+            "probe_step_s": step_s, "probe_draw_s": draw_s, "rate": rate,
+            "tok_per_s": total / span, "latency_pct": tuple(float(v) for v in pct),
+            "predicted_pct": tuple(pred), "admission_wait_pct": tuple(map(float, wait_pct)),
+            "first_token_pct": tuple(map(float, ttft_pct)), "device": dev_name}
+
+
 def main(argv=None) -> dict:
-    """Run the launcher; returns the timing and the (T, B) token array."""
+    """Run the launcher; returns the timing and the (T, B) token array
+    (lockstep), or ``run_continuous``'s dict (``--continuous``)."""
     args = _parse(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -100,6 +259,8 @@ def main(argv=None) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cache_len = args.prompt_len + args.gen
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    if args.continuous:
+        return run_continuous(args, cfg, device, dev_name)
     print(f"arch={cfg.name} serve plan: stage={SINGLE.stage} tp={SINGLE.tp} "
           f"cache={cache_len} device={dev_name}")
 

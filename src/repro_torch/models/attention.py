@@ -96,6 +96,8 @@ def attention_decode(params, x, position, cache: dict, cfg: AttentionConfig):
     else:
         _cache_insert(cache, {"k": k, "v": v}, position)
         cache_len = position + 1
+        if isinstance(cache_len, torch.Tensor):
+            cache_len = cache_len.to(torch.int32)     # flash_decode's (B,) int32
         win = cfg.window
     o = decode_attention(q, cache["k"], cache["v"], cache_len, scale=d ** -0.5,
                          window=win, softcap=cfg.softcap)

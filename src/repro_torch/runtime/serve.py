@@ -1,12 +1,29 @@
-"""Serving on one card: lockstep decode step and prefill step.
+"""Serving on one card: lockstep, per-slot and pipelined decode, and prefill.
 
-The one-card case of ``repro.runtime.serve`` (stage 1, tp 1, no
-``shard_map``): ``build_serve_step`` returns a step that computes what
-``spmd_decode_fn``'s body computes at stage 1, and ``build_prefill_step``
-one that returns last-position logits as ``repro``'s prefill does.  With one
-stage and tp 1 nothing is padded, so ``repro``'s ``prepare_params`` is
-``init_model`` here.  Pipelined decode, per-slot decode and continuous
-batching are not ported yet.
+The one-card case of ``repro.runtime.serve`` (no ``shard_map``):
+
+* ``build_serve_step`` returns a step that computes what
+  ``spmd_decode_fn``'s body computes: lockstep decode, one position shared
+  by the batch.
+* ``build_slot_serve_step`` returns ``repro``'s per-slot step (``slot_fn``):
+  each row decodes at its own position, rows flagged in ``reset`` have
+  every state leaf zeroed first (slot admission), and the logits of padded
+  rows are exactly 0.  ``repro``'s data shards are row blocks of the one
+  batch here, shard-major as in ``repro``'s global layout; its SPMD step
+  advances every shard in one step too, so each row is computed as there.
+* **Virtual stages.**  With P > 1 stages, ``_pipelined_decode`` streams the
+  batch through P stages run in turn on the card, in ``repro``'s tick
+  order: at tick t stage p runs group t - p (bubble ticks skipped).  The
+  periods stay in model order, unpadded (``runtime.pipeline.stage_ranges``);
+  a stage with no period passes its input through, as ``repro``'s zero
+  periods do.  Tensor parallelism is a label (``MeshPlan.tp``): nothing is
+  split on one card.
+* ``build_prefill_step`` returns last-position logits as ``repro``'s
+  prefill does.
+
+With tp 1 nothing is padded, so ``repro``'s ``prepare_params`` is
+``init_model`` here.  Sequence-sharded decode (``seq_shard``) needs a data
+axis and is not ported.
 """
 
 from __future__ import annotations
@@ -14,12 +31,31 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
-from repro_torch.distributed.mesh import SINGLE, MeshPlan
-from repro_torch.models.blocks import init_period_states
+from repro_torch.core.planner import serve_stage_candidates
+from repro_torch.distributed.mesh import SINGLE, MeshPlan, refine
+from repro_torch.models.blocks import decode_period, init_period_states, tree_index
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, head_logits, model_forward
+from repro_torch.models.model import (decode_step, embed_tokens, head_logits,
+                                      model_forward)
+from repro_torch.optim import tree_leaves, tree_map
+
+from .pipeline import stage_ranges
+
+
+def serve_head_count(cfg: ModelConfig) -> int:
+    """Head count that caps tensor parallelism for decode."""
+    return cfg.attn.n_heads if cfg.attn is not None else (
+        cfg.d_model // cfg.rwkv.head_dim if cfg.rwkv is not None else 1)
+
+
+def pick_serve_stage(cfg: ModelConfig, model_axis: int) -> int:
+    """Serve prefers TP: the smallest stage count whose tp divides the query
+    head count (``repro``'s choice over the divisors of ``model_axis``;
+    ``core.planner.plan_serve`` makes the latency-priced one)."""
+    return serve_stage_candidates(model_axis, serve_head_count(cfg))[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +64,21 @@ class ServeSpec:
     plan: MeshPlan
     cache_len: int
     batch_global: int
+    n_groups: int = 1          # decode pipelining groups (stage > 1)
+    # live decode slots per data shard; every shard is padded to
+    # max(shard_alloc) rows.  Setting it switches to the per-slot step.
+    shard_alloc: tuple[int, ...] | None = None
+
+    @property
+    def per_slot(self) -> bool:
+        return self.shard_alloc is not None
+
+    @property
+    def slot_mask(self) -> torch.Tensor:
+        """(dp_shards, B_max) bool validity of each padded slot row."""
+        assert self.shard_alloc is not None
+        b_max = self.batch_global // self.plan.dp_shards
+        return torch.tensor([[i < y for i in range(b_max)] for y in self.shard_alloc])
 
 
 @dataclasses.dataclass
@@ -39,29 +90,142 @@ class ServeStep:
 def prepare_serve_states(cfg: ModelConfig, plan: MeshPlan, batch_global: int,
                          cache_len: int, device="cuda"):
     """Decode state tree, one ``{"mixer": ...}`` per pattern slot, leaves
-    stacked on a leading n_periods axis: an attention slot holds ``{"k",
+    stacked on a leading n_periods axis (in model order, for any stage
+    count: the port never pads the stack): an attention slot holds ``{"k",
     "v"}`` (n_periods, B, cache_len, Hkv, D), a Mamba slot ``{"conv"}``
     (n_periods, B, d_conv - 1, d_inner) and ``{"ssm"}`` (n_periods, B,
     d_inner, d_state) float32, an RWKV slot ``{"shift"}`` (n_periods, B, 1,
     D) and ``{"wkv"}`` (n_periods, B, H, head_dim, head_dim) float32, and
     beside it ``"cm": {"shift"}`` (n_periods, B, 1, D) for the channel mix."""
-    if plan.stage != 1:
-        raise NotImplementedError("pipelined decode is not ported yet")
     return init_period_states(batch_global, cache_len, cfg, cfg.cdtype, device)
 
 
-def build_serve_step(cfg: ModelConfig, *, batch_global: int,
-                     cache_len: int) -> ServeStep:
+def _group_count(rows: int, n_groups: int) -> int:
+    """``n_groups`` where it splits ``rows`` evenly, else 1 (``repro``'s rule)."""
+    return n_groups if (rows % n_groups == 0 and rows >= n_groups) else 1
+
+
+def zero_rows(states, rows) -> None:
+    """Zero batch rows ``rows`` (host indices) of every state leaf in place
+    (leaves are (n_periods, B, ...)): slot admission."""
+    if rows:
+        leaves = tree_leaves(states)
+        idx = torch.tensor(list(rows), device=leaves[0].device)
+        for leaf in leaves:
+            leaf.index_fill_(1, idx, 0)
+
+
+def _pipelined_decode(periods, x, position, states, cfg: ModelConfig,
+                      ranges, n_groups: int):
+    """Stream the batch through the virtual stages in groups of B / n_g rows.
+
+    Stage p owns periods ``ranges[p]``.  A group's state rows are views of
+    ``states`` (batch on axis 1), written in place by the decode code, so
+    they reach the base tensors as ``repro``'s ``update_b`` writes them
+    back; per-row positions travel with their group."""
+    B = x.shape[0]
+    n_g = _group_count(B, n_groups)
+    bg = B // n_g
+    acts = list(x.split(bg))
+    for t in range(n_g + len(ranges) - 1):
+        for p, (i, j) in enumerate(ranges):
+            g = t - p
+            if not 0 <= g < n_g:
+                continue
+            rows = slice(g * bg, (g + 1) * bg)
+            pos = position[rows] if isinstance(position, torch.Tensor) else position
+            st = tree_map(lambda s: s[:, rows], states)
+            h = acts[g]
+            for k in range(i, j):
+                h, _ = decode_period(tree_index(periods, k), h, pos,
+                                     tree_index(st, k), cfg)
+            acts[g] = h
+    return torch.cat(acts)
+
+
+def _decode_fn(spec: ServeSpec):
+    """``fn(params, token (B,), position, states) -> (logits (B, V), states)``
+    at ``spec.plan.stage`` virtual stages."""
+    cfg = spec.cfg
+    if spec.plan.stage == 1:
+        def fn(params, token, position, states):
+            return decode_step(params, token, position, states, cfg)
+        return fn
+    ranges = stage_ranges(cfg.n_periods, spec.plan.stage)
+
+    def fn(params, token, position, states):
+        x = embed_tokens(params, token, cfg)
+        h = _pipelined_decode(params["periods"], x, position, states, cfg, ranges,
+                              spec.n_groups)
+        return head_logits(params, h, cfg), states
+    return fn
+
+
+def build_serve_step(cfg: ModelConfig, *, batch_global: int, cache_len: int,
+                     stage: int = 1, n_groups: int | None = None) -> ServeStep:
     """``step_fn(params, token (B,), position, states) -> (logits (B, V),
     states)``; ``position`` is a Python int shared by the batch (lockstep).
     Runs where ``params`` and ``states`` live; the caches, Mamba and RWKV
-    states in ``states`` are updated in place."""
-    spec = ServeSpec(cfg=cfg, plan=SINGLE, cache_len=cache_len,
-                     batch_global=batch_global)
+    states in ``states`` are updated in place.  ``stage`` > 1 streams the
+    batch through that many virtual stages in ``n_groups`` groups."""
+    if n_groups is None:
+        n_groups = _group_count(batch_global, stage)
+    spec = ServeSpec(cfg=cfg, plan=MeshPlan(stage=stage), cache_len=cache_len,
+                     batch_global=batch_global, n_groups=n_groups)
+    body = _decode_fn(spec)
 
     @torch.inference_mode()
     def step_fn(params, token, position, states):
-        return decode_step(params, token, position, states, cfg)
+        return body(params, token, position, states)
+
+    return ServeStep(spec=spec, step_fn=step_fn)
+
+
+def build_slot_serve_step(cfg: ModelConfig, *, cache_len: int, shard_alloc,
+                          stage: int | None = None, n_groups: int | None = None,
+                          model_axis: int | None = None) -> ServeStep:
+    """Continuous-batching decode step with heterogeneous slot splits.
+
+    ``shard_alloc[d]`` live decode slots run on data shard ``d``.  Every
+    shard is padded to ``B_max = max(shard_alloc)`` rows; the step is
+
+        ``step_fn(params, token (B,), position (B,), reset (B,), states)``
+
+    with ``B = len(shard_alloc) * B_max`` rows in shard-major order (rows
+    ``[d*B_max, d*B_max + shard_alloc[d])`` are live).  ``position`` is
+    per-row (int32 on the card).  ``reset`` is a host mask (numpy, a list or
+    a CPU tensor): its rows have every state leaf zeroed in place before the
+    step.  Padded rows return logits of exactly 0.  ``model_axis`` (default ``stage``, or 1) is split
+    into ``stage`` x tp as ``repro``'s mesh is; tp is a label on one card.
+    """
+    if model_axis is None:
+        model_axis = stage or 1
+    if stage is None:
+        stage = pick_serve_stage(cfg, model_axis)
+    stage, tp = refine(model_axis, stage)
+    shard_alloc = tuple(int(y) for y in shard_alloc)
+    if not shard_alloc or min(shard_alloc) < 0 or max(shard_alloc) < 1:
+        raise ValueError(f"shard_alloc {shard_alloc} holds no live slot")
+    b_max = max(shard_alloc)
+    batch_global = b_max * len(shard_alloc)
+    if n_groups is None:
+        n_groups = _group_count(b_max, stage)
+    spec = ServeSpec(cfg=cfg, plan=MeshPlan(data=len(shard_alloc), stage=stage, tp=tp),
+                     cache_len=cache_len, batch_global=batch_global,
+                     n_groups=n_groups, shard_alloc=shard_alloc)
+    body = _decode_fn(spec)
+    pad = [r for r in range(batch_global) if r % b_max >= shard_alloc[r // b_max]]
+    pad_idx: dict = {}
+
+    @torch.inference_mode()
+    def step_fn(params, token, position, reset, states):
+        zero_rows(states, np.flatnonzero(np.asarray(reset)).tolist())
+        logits, states = body(params, token, position, states)
+        if pad:
+            if logits.device not in pad_idx:
+                pad_idx[logits.device] = torch.tensor(pad, device=logits.device)
+            logits.index_fill_(0, pad_idx[logits.device], 0.0)
+        return logits, states
 
     return ServeStep(spec=spec, step_fn=step_fn)
 

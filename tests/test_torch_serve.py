@@ -108,6 +108,7 @@ def _default_device_call(entry):
     from repro_torch.interop import states_from_numpy
     from repro_torch.models.model import init_decode_states, init_model
     from repro_torch.models.ssm import init_mamba, init_mamba_state
+    from repro_torch.runtime.continuous import engine_from_decode_step
     cfg = get_smoke_config("phi3-mini-3.8b")
     jamba = smoke_reduce(config_without_experts())
     tree = {"w": (np.ones((2, 3), np.float32),)}
@@ -123,13 +124,20 @@ def _default_device_call(entry):
         "init_mamba_state": lambda: init_mamba_state(2, jamba.d_model, jamba.mamba),
         "prepare_serve_states": lambda: tserve.prepare_serve_states(
             cfg, tserve.build_serve_step(cfg, batch_global=2, cache_len=4).spec.plan, 2, 4),
+        "prepare_serve_states_slot_stage2": lambda: tserve.prepare_serve_states(
+            cfg, tserve.build_slot_serve_step(cfg, cache_len=4, shard_alloc=(1, 1),
+                                              stage=2).spec.plan, 2, 4),
+        "engine_from_decode_step": lambda: engine_from_decode_step(
+            None, cfg, batch=2, cache_len=4).holder["states"],
     }[entry]()
 
 
 @pytest.mark.parametrize("entry", ["params_from_numpy", "states_from_numpy", "init_model",
                                    "init_decode_states", "prepare_serve_states",
                                    "init_model_jamba", "init_decode_states_jamba",
-                                   "init_mamba", "init_mamba_state"])
+                                   "init_mamba", "init_mamba_state",
+                                   "prepare_serve_states_slot_stage2",
+                                   "engine_from_decode_step"])
 def test_entry_points_default_to_card(entry):
     """Without a device argument, tensors go to the card, never to the CPU."""
     if not torch.cuda.is_available():
@@ -160,5 +168,5 @@ def test_launcher_without_card_refuses_cpu():
         main(["--smoke", "--batch", "2", "--prompt-len", "2", "--gen", "2"])
     assert e.value.code not in (0, None)
     with pytest.raises(SystemExit) as e:
-        main(["--smoke", "--device", "cpu", "--continuous"])
+        main(["--smoke", "--device", "cpu", "--seq-shard"])
     assert e.value.code != 0
