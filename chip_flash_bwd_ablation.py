@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the flash-attention backward's time goes, on one NVIDIA card.
 
-    python3 chip_flash_bwd_ablation.py
+    python3 chip_flash_bwd_ablation.py [--against <older flash_attention_bwd.cu>]
 
 Builds ``src/repro_torch/csrc/flash_attention_bwd.cu`` as it is and in
 copies that each leave out one kind of work, loads each build in place of
@@ -15,14 +15,21 @@ once forward, once backward through the list):
 - ``no stores``: the stagers split and store no chunk into the ring;
 - ``no loads, no products``: both of the first two.
 
-The copies compute wrong gradients on purpose; only ``as is`` is held to the
-plain version.  The gap between a copy and ``as is`` is what that work adds
+With ``--against``, an older source (its ``tc_tf32.cuh`` taken from beside
+it where there is one) is built too and timed in the same turns as
+``against``, held to the plain version and to ``as is`` bit for bit (a
+source whose entry point predates the softcap argument is called without
+it).
+
+The copies compute wrong gradients on purpose; only ``as is`` (and
+``against``) is held to the plain version.  The gap between a copy and ``as is`` is what that work adds
 on the critical path.  The builds go to ``src/repro_torch/_build/ablation/``
 (gitignored).  Needs a card and nvcc; exits non-zero without them.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -46,7 +53,25 @@ BUILDS = {"as is": [], "no global loads": NO_LOADS, "no products": NO_PRODUCTS,
           "no stores": NO_STORES, "no loads, no products": NO_LOADS + NO_PRODUCTS}
 
 
-def main() -> int:
+class _NoSoftcap:
+    """An older library whose entry point takes no softcap: called with
+    today's arguments less the softcap (which is 0 here)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def flash_attention_bwd(self, *args):
+        return self.lib.flash_attention_bwd(*args[:-2], args[-1])
+
+    def flash_attention_bwd_error_string(self, err):
+        return self.lib.flash_attention_bwd_error_string(err)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", type=Path, default=None,
+                    help="an older flash_attention_bwd.cu, timed in the same turns")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -63,8 +88,12 @@ def main() -> int:
     tmp = _build.BUILD_DIR / "ablation"
     shutil.rmtree(tmp, ignore_errors=True)
     procs = {}
-    for i, (name, subs) in enumerate(BUILDS.items()):
-        text = src
+    builds = {name: (src, subs, CSRC / "tc_tf32.cuh") for name, subs in BUILDS.items()}
+    if args.against is not None:
+        beside = args.against.parent / "tc_tf32.cuh"
+        builds["against"] = (args.against.read_text(), [],
+                             beside if beside.exists() else CSRC / "tc_tf32.cuh")
+    for i, (name, (text, subs, header)) in enumerate(builds.items()):
         for old, new in subs:
             if old not in text:
                 raise AssertionError(f"{name}: the source no longer holds {old[:60]!r}")
@@ -72,7 +101,7 @@ def main() -> int:
         d = tmp / str(i)
         d.mkdir(parents=True)
         (d / "flash_attention_bwd.cu").write_text(text)
-        (d / "tc_tf32.cuh").write_text((CSRC / "tc_tf32.cuh").read_text())
+        (d / "tc_tf32.cuh").write_text(header.read_text())
         procs[name] = (d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / "flash_attention_bwd.cu")], stdout=subprocess.PIPE,
@@ -83,10 +112,12 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        lib.flash_attention_bwd.argtypes = _build.ARGTYPES["flash_attention_bwd"]
+        argtypes = list(_build.ARGTYPES["flash_attention_bwd"])
+        old = "float softcap, void* stream" not in builds[name][0]
+        lib.flash_attention_bwd.argtypes = argtypes[:-2] + argtypes[-1:] if old else argtypes
         lib.flash_attention_bwd.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[name] = _NoSoftcap(lib) if old else lib
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
@@ -96,14 +127,19 @@ def main() -> int:
     out, lse = flash_attention(q, k, v, return_lse=True)
     want = ops.plain_flash_attention_bwd(q, k, v, dout)
     times = {name: [] for name in libs}
+    first = {}
     for name in list(libs) + list(libs)[::-1]:
         _build._LIBS["flash_attention_bwd"] = libs[name]
         got = flash_attention_bwd(q, k, v, out, lse, dout)
-        if name == "as is":
+        if name in ("as is", "against"):
             err = max(max_err(a, b) for a, b in zip(got, want))
             if not err <= 1e-4:
-                raise AssertionError(f"the backward as built disagrees with the plain version: {err}")
+                raise AssertionError(f"the backward {name} disagrees with the plain version: {err}")
+            first.setdefault(name, got)
         times[name].append(device_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout), torch))
+    if "against" in first:
+        same = all(torch.equal(a, b) for a, b in zip(first["as is"], first["against"]))
+        print(f"as is and against: gradients bitwise {'equal' if same else 'DIFFERENT'}")
     card = card_line()
     print(f"flash_attention_bwd ({B}, {S}, {H}, {D}) causal fp32, device ms per call "
           f"(two readings each), {card}:")

@@ -8,9 +8,12 @@ full width of ``phi3-mini-3.8b`` (32 layers, d_model 3072, 32 heads x 96,
 d_ff 8192, vocab 32064, fp32, random weights from a seeded
 ``torch.Generator`` on the card), serves one 8-layer period of Jamba-1.5-Large without experts at
 its published widths (d_model 8192, 64/8 heads x 128, d_ff 24576, Mamba
-d_inner 16384 and d_state 16, vocab 65536), and serves the published
+d_inner 16384 and d_state 16, vocab 65536), serves the published
 ``rwkv6-7b`` whole (32 layers, d_model 4096, 64 heads x 64, d_ff 14336,
-vocab 65536):
+vocab 65536), and serves ``gemma-2b``, ``gemma2-2b`` and ``deepseek-7b``
+whole and trains ``gemma2-2b`` whole (26 layers, d_model 2304, 8/4 heads x
+256, d_ff 9216, vocab 256000, tied embeddings, softcaps 50 and 30, a local
+window of 4096 on every other layer):
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
@@ -169,6 +172,33 @@ vocab 65536):
    lockstep decode at batch 8, prompt 64 + gen 64 (the serve launcher's
    loop); every kernel's launch count checked; device-busy share of a
    decode step from a profiler trace;
+10a. (after 8c, before phase 9's traces) holds the kernels at the dense
+   families' shapes against their plain versions, timed beside bound,
+   plain version and SDPA ("none" under a softcap): the flash forward and
+   backward (dq, dk, dv) at gemma-2b's prefill (2, 512, 8/1, 256), gemma2's
+   (2, 512, 8/4, 256, softcap 50) and its training micro-batch (1, 8192,
+   8/4, 256, window 4096, softcap 50; also against float64) and a
+   softcapped head_dim 96 (the tensor cores), within ``TOL_DENSE_ATTN``;
+   ``flash_decode`` at gemma-2b's and gemma2's decode steps (batch 8, cache
+   256, per-row lengths); ``fused_swiglu`` with ``gelu_tanh`` at gemma2's
+   widths (T = 8 and 4096) and ``swiglu_bwd`` at (8192, 9216);
+10b. one gemma2 period (a local and a global layer) at published widths,
+   card vs CPU: logits at every position, 16 lockstep decode steps (and
+   prefill vs decode on the card), the loss and every gradient leaf of an
+   uncompressed step on 2 virtual stages, the tied embedding's named;
+10c. that period at batch 1 decodes 4160 positions one at a time (the
+   local layer's 4096-slot ring wraps), the last 8 logits against one
+   prefill;
+10d. serves each of gemma-2b (18 layers), gemma2-2b (26) and deepseek-7b
+   (30) whole as phase 5 serves phi3: prefill 8 x 512, ``launch.serve``
+   batch 8, prompt 128 + gen 128, launch counts, busy share, peak memory;
+10e. trains gemma2-2b whole through ``launch.train --stage 2 --seq 8192
+   --global-batch 2 --n-micro 2 --compress int8 --bucket-mb 256
+   --no-error-feedback``, 1 warm-up + 2 steps, every step's launch counts;
+10f. the paper's loop on gemma2-2b as 6c runs it on phi3 (``launch.profile``
+   at seq 256, batches 1-8, 4 x 20 GB; ``launch.train --plan --profile``
+   at 6b's batch flags, 4 steps): the split, the predicted round and the
+   summed work beside the measured ms/step, launch counts;
 9. reads device times at the training shape from profiler traces (last,
    because tracing slows later launches): the flash forward beside SDPA's
    forward, the flash backward alone, and the port's forward with the
@@ -181,8 +211,10 @@ vocab 65536):
    a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
    the phi3 serving, phi3 continuous serving (5b (c)), phi3 training, phi3
    planned training, staleness-1 and
-   failure-recovery training, portfolio (6e (a), (b)), Jamba serving and
-   rwkv6-7b serving paths) and, last, ``{"ok": true, ...}``.
+   failure-recovery training, portfolio (6e (a), (b)), Jamba serving,
+   rwkv6-7b serving, the three dense serving paths, gemma2-2b training and
+   planned training (10d-10f), and phase 10a's rows under ``dense``) and,
+   last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -394,9 +426,10 @@ DECODE_SHAPES = {
 }
 
 
-def decode_inputs(torch, dev, g, name, dtype=None):
-    """q, k, v, lens of ``DECODE_SHAPES[name]``, values N(0, 0.25) from ``g``."""
-    B, H, Hkv, S, D, lens = DECODE_SHAPES[name]
+def decode_inputs(torch, dev, g, name, dtype=None, shapes=None):
+    """q, k, v, lens of ``DECODE_SHAPES[name]`` (or ``shapes[name]``),
+    values N(0, 0.25) from ``g``."""
+    B, H, Hkv, S, D, lens = (shapes or DECODE_SHAPES)[name]
     q, k, v = (torch.randn(shape, generator=g, device=dev).mul_(0.5).to(dtype or torch.float32)
                for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
     return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -418,11 +451,12 @@ def in_turns(fns):
     return lambda: next(it)()
 
 
-def decode_bound(name, elem=4):
-    """``flash_decode``'s least time at ``DECODE_SHAPES[name]``: q read and
-    the output written once, each valid K and V row read once, the lengths;
-    or 4·D fp32 flops a (query head, valid key)."""
-    B, H, Hkv, S, D, lens = DECODE_SHAPES[name]
+def decode_bound(name, elem=4, shapes=None):
+    """``flash_decode``'s least time at ``DECODE_SHAPES[name]`` (or
+    ``shapes[name]``): q read and the output written once, each valid K and V
+    row read once, the lengths; or 4·D fp32 flops a (query head, valid
+    key)."""
+    B, H, Hkv, S, D, lens = (shapes or DECODE_SHAPES)[name]
     total = sum(lens)
     return bound(elem * (2 * B * H * D + 2 * total * Hkv * D) + 4 * B, 4 * D * H * total)
 
@@ -534,12 +568,21 @@ def phase_decode(torch, ops, F, dev) -> dict:
     return entry
 
 
-def flash_bound(B, S, H, Hkv, D, causal=True):
+def causal_pairs(S: int, window=None) -> int:
+    """(query, visible key) pairs of one head, causal, under a window."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_bound(B, S, H, Hkv, D, causal=True, window=None, softcap=None):
     """``flash_attention``'s least time: q/out read and written once, k/v
-    read once, or 4·D flops a (query, valid key) pair as 3xTF32 products on
-    the tensor cores."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    return bound(4 * (2 * B * S * H * D + 2 * B * S * Hkv * D), 0, tf32x3=4 * D * B * H * pairs)
+    read once, or 4·D flops a (query, visible key) pair as 3xTF32 products
+    on the tensor cores and an exponential (and a tanh under a softcap) a
+    pair on the SFU."""
+    pairs = B * H * (causal_pairs(S, window) if causal else S * S)
+    return bound(4 * (2 * B * S * H * D + 2 * B * S * Hkv * D), 0,
+                 pairs * (2 if softcap else 1), tf32x3=4 * D * pairs)
 
 
 def phase_flash(torch, ops, F, dev) -> dict:
@@ -728,32 +771,34 @@ def phase_decode_device(torch, ops, F, dev, entries: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def cublas_swiglu(F, x, wg, wu, wd):
-    """SwiGLU as a PyTorch user writes it: three fp32 cuBLAS products (TF32
-    off) and the activation.  No one PyTorch call computes the fused MLP, so
-    this route is ``fused_swiglu``'s library yardstick; written out here so
-    that a change to the plain version cannot move it."""
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+def cublas_swiglu(F, x, wg, wu, wd, act="silu"):
+    """SwiGLU (GeGLU for ``gelu_tanh``) as a PyTorch user writes it: three
+    fp32 cuBLAS products (TF32 off) and the activation.  No one PyTorch call
+    computes the fused MLP, so this route is ``fused_swiglu``'s library
+    yardstick; written out here so that a change to the plain version cannot
+    move it."""
+    a = F.silu(x @ wg) if act == "silu" else F.gelu(x @ wg, approximate="tanh")
+    return (a * (x @ wu)) @ wd
 
 
-def time_swiglu(torch, ops, F, x, w, what: str) -> dict:
-    """``fused_swiglu`` at x (silu, fp32) against its plain version, then
-    timed beside the plain version, the cuBLAS route and its bound: the
-    products as 3xTF32 on the tensor cores, or the weights and x, out read
-    or written once."""
+def time_swiglu(torch, ops, F, x, w, what: str, act: str = "silu") -> dict:
+    """``fused_swiglu`` at x (fp32) against its plain version, then timed
+    beside the plain version, the cuBLAS route and its bound: the products
+    as 3xTF32 on the tensor cores, or the weights and x, out read or written
+    once."""
     T, D = x.shape
     Fd = w[0].shape[1]
-    err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
-    check(err, TOL_FP32, f"fused_swiglu {what} T={T} D={D} F={Fd}")
-    ms = time_ms([lambda: ops.fused_swiglu_op(x, *w)], torch)
-    plain_ms = time_ms([lambda: ops.plain_fused_swiglu(x, *w)], torch)
-    lib_ms = time_ms([lambda: cublas_swiglu(F, x, *w)], torch)
+    err = max_err(ops.fused_swiglu_op(x, *w, act), ops.plain_fused_swiglu(x, *w, act))
+    check(err, TOL_FP32, f"fused_swiglu {what} T={T} D={D} F={Fd} {act}")
+    ms = time_ms([lambda: ops.fused_swiglu_op(x, *w, act)], torch)
+    plain_ms = time_ms([lambda: ops.plain_fused_swiglu(x, *w, act)], torch)
+    lib_ms = time_ms([lambda: cublas_swiglu(F, x, *w, act)], torch)
     bms, by = bound(4 * (3 * D * Fd + 2 * T * D), 0, tf32x3=6 * T * D * Fd)
-    print(f"  fused_swiglu {what} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"  fused_swiglu {what} T={T} {act}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"cuBLAS route {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms,
-            "shape": f"x ({T},{D}) wg/wu ({D},{Fd}) wd ({Fd},{D}) fp32"}
+            "shape": f"x ({T},{D}) wg/wu ({D},{Fd}) wd ({Fd},{D}) fp32 {act}"}
 
 
 def phase_swiglu(torch, ops, F, dev) -> dict:
@@ -927,30 +972,44 @@ BWD_EDGES = [
 ]
 
 
-def flash_bwd_bound(B, S, H, D):
-    """``flash_attention_bwd``'s least time: q, k, v, o and dO read once,
-    dq, dk and dv written once, the logsumexp read (fp32), or its five
-    products, 10·D flops a (query, valid key) pair, as 3xTF32 on the tensor
-    cores."""
-    pairs = B * H * (S * (S + 1) // 2)
-    nbytes = 4 * (8 * B * S * H * D + B * H * S)
-    return bound(nbytes, 0, tf32x3=10 * D * pairs)
+def flash_bwd_bound(B, S, H, D, Hkv=None, window=None, softcap=None):
+    """``flash_attention_bwd``'s least time, causal: q, o and dO (H heads)
+    and k, v (Hkv) read once, dq (H) and dk, dv (Hkv) written once, the
+    logsumexp read (fp32), or its five products, 10·D flops a (query,
+    visible key) pair, as 3xTF32 on the tensor cores, and the exponentials
+    (and tanhs) on the SFU."""
+    Hkv = Hkv or H
+    pairs = B * H * causal_pairs(S, window)
+    nbytes = 4 * (4 * B * S * H * D + 4 * B * S * Hkv * D + B * H * S)
+    return bound(nbytes, 0, pairs * (2 if softcap else 1), tf32x3=10 * D * pairs)
 
 
-def attention_bwd_float64(torch, q, k, v, dout):
-    """(dq, dk, dv) of causal attention (B, S, H, D) with GQA, in float64:
-    the closed form (dS = P (dP - rowsum(dO O))), a reference for sums too
-    long for fp32."""
+def attention_bwd_float64(torch, q, k, v, dout, window=None, softcap=None):
+    """(dq, dk, dv) of causal attention (B, S, H, D) with GQA, a sliding
+    window and a tanh softcap c, in float64: the closed form (dS = P (dP -
+    rowsum(dO O)), times 1 - (S / c)^2 under the cap), a reference for sums
+    too long for fp32."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qd, dd = (t.double().transpose(1, 2) for t in (q, dout))
     kd, vd = (t.double().repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
     keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    s = (qd @ kd.transpose(-1, -2) * D ** -0.5).masked_fill_(~keep, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    if window is not None:
+        keep &= ~torch.ones((S, S), dtype=torch.bool, device=q.device).tril(-window)
+    s = qd @ kd.transpose(-1, -2) * D ** -0.5
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        dcap = 1 - t * t
+        s = softcap * t
+        del t
+    p = torch.softmax(s.masked_fill_(~keep, float("-inf")), dim=-1)
     del s
     ds = p * (dd @ vd.transpose(-1, -2) - (dd * (p @ vd)).sum(-1, keepdim=True))
+    if dcap is not None:
+        ds *= dcap
+        del dcap
     dq = (ds @ kd * D ** -0.5).transpose(1, 2)
     dk = (ds.transpose(-1, -2) @ qd * D ** -0.5).transpose(1, 2)
     dv = (p.transpose(-1, -2) @ dd).transpose(1, 2)
@@ -1340,13 +1399,17 @@ def phase_parity(torch, dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(torch, ops, dev, card: str) -> dict:
+def phase_serve(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b") -> dict:
+    """``arch`` whole at its published widths: the prefill step on 8 x 512
+    tokens, then ``launch.serve``'s lockstep loop (batch 8, prompt 128 + gen
+    128), every kernel's launch count checked, the decode step's device-busy
+    share from a profiler trace, peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launcher
     from repro_torch.models.model import init_model
     from repro_torch.runtime.serve import build_prefill_step
 
-    cfg = get_config("phi3-mini-3.8b")
+    cfg = get_config(arch)
     B, S = 8, 512
     prompt, gen = 128, 128
     t0 = time.perf_counter()
@@ -1389,14 +1452,16 @@ def phase_serve(torch, ops, dev, card: str) -> dict:
         raise AssertionError(f"launch counts {launches} != {expect}")
     peak = torch.cuda.max_memory_allocated(dev)
     step_ms = res["seconds"] / steps * 1e3
-    print(f"serve phi3-mini-3.8b full width fp32: prefill {B}x{S} {prefill_ms:.3f} ms; "
-          f"decode {step_ms:.3f} ms/step over {steps} steps "
-          f"(batch {B}); {res['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.3f} GB; "
+    print(f"serve {cfg.name} full width fp32 ({cfg.n_layers} layers): prefill {B}x{S} "
+          f"{prefill_ms:.3f} ms; decode {step_ms:.3f} ms/step over {steps} steps "
+          f"(batch {B}), {cfg.n_layers} flash_decode and {cfg.n_layers} fused_swiglu "
+          f"launches a step; {res['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.3f} GB; "
           f"card {card}")
     if device_ms is not None:
         print(f"  device busy {device_ms:.3f} ms of the {step_ms:.3f} ms decode step "
               f"({device_ms / step_ms:.1%}; idle {1 - device_ms / step_ms:.1%})")
-    return {"launches": launches, "step_ms": step_ms}
+    return {"launches": launches, "step_ms": step_ms, "prefill_ms": prefill_ms,
+            "peak_gb": peak / 1e9, "busy_ms": device_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1987,8 +2052,9 @@ def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
 # ---------------------------------------------------------------------------
 
 
-def phase_plan_train(torch, ops, dev, card: str) -> dict:
-    """Full width: ``launch.profile`` measures phi3 into an artifact (4
+def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
+                     label: str = "6c") -> dict:
+    """Full width: ``launch.profile`` measures ``arch`` into an artifact (4
     virtual devices of 20 GB), ``launch.train --plan --profile`` plans it
     (``plan_hpp``), lowers it and trains 4 steps (1 warm-up) on the
     planner's period split, with the launch counts of every step and of one
@@ -2000,19 +2066,19 @@ def phase_plan_train(torch, ops, dev, card: str) -> dict:
     from repro_torch.launch import train as launcher
     from repro_torch.optim import tree_leaves
 
-    cfg = get_config("phi3-mini-3.8b")
+    cfg = get_config(arch)
     L, M, B, S, steps, n_dev = cfg.n_layers, 4, 8, 256, 4, 4
     out_dir = ROOT / "profiles"
     out_dir.mkdir(exist_ok=True)
-    path = str(out_dir / "phase6c_profile.json")
-    print("phase 6c (a): profile full-width phi3 on the card")
+    path = str(out_dir / f"phase{label}_profile.json")
+    print(f"phase {label} (a): profile full-width {arch} on the card")
     t0 = time.perf_counter()
     profiler_cli.main(["--arch", cfg.name, "--seq", str(S), "--batches", "1,2,4,8",
                        "--replicate", str(n_dev), "--mem-gb", "20", "-o", path])
     print(f"  profiled in {time.perf_counter() - t0:.1f}s; card {card}")
     torch.cuda.empty_cache()
 
-    print("phase 6c (b): plan, lower and train through launch.train --plan --profile")
+    print(f"phase {label} (b): plan, lower and train through launch.train --plan --profile")
     argv = ["--plan", "--profile", path, "--devices", str(n_dev), "--global-batch", str(B),
             "--n-micro", str(M), "--seq", str(S), "--compress", "int8", "--bucket-mb", "256",
             "--no-error-feedback", "--steps", str(steps), "--log-every", "1"]
@@ -2075,7 +2141,7 @@ def phase_plan_train(torch, ops, dev, card: str) -> dict:
     print(f"  plan: {P} stages, periods {lowered.stage_periods}, groups "
           f"{lowered.device_groups}, alloc {lowered.micro_alloc}, K_p {lowered.warmup}; "
           f"Eq. 3 bounds {[round(bounds[d] / 1e9, 3) for d in sorted(bounds)]} GB")
-    print(f"plan_train phi3-mini-3.8b full width fp32 from the measured profile: "
+    print(f"plan_train {cfg.name} full width fp32 from the measured profile: "
           f"predicted round latency {plan.latency * 1e3:.1f} ms ({n_dev} devices in "
           f"parallel), simulated {sim.makespan * 1e3:.1f} ms, summed device work "
           f"{work_s * 1e3:.1f} ms (one card runs it in turn); measured {ms_step:.1f} ms/step "
@@ -3115,6 +3181,331 @@ def phase_rwkv_serve(torch, ops, dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 10a-10f: the dense families (gemma-2b, gemma2-2b, deepseek-7b)
+# ---------------------------------------------------------------------------
+
+# flash attention at the dense families' shapes, fp32, causal: name -> (B,
+# S, H, Hkv, D, window, softcap): gemma-2b's prefill (MQA), gemma2's
+# (GQA 2, softcap 50), gemma2's training micro-batch at its published
+# context (the local layers' window of 4096 binds), and a softcapped
+# head_dim 96 (the tensor-core route)
+DENSE_ATTN = {
+    "gemma_prefill": (2, 512, 8, 1, 256, None, None),
+    "gemma2_prefill": (2, 512, 8, 4, 256, None, 50.0),
+    "gemma2_train": (1, 8192, 8, 4, 256, 4096, 50.0),
+    "softcap_d96": (2, 256, 8, 2, 96, None, 50.0),
+}
+# flash_decode at gemma-2b's and gemma2's decode steps (batch 8, cache 256,
+# phase 3's per-row lengths), as DECODE_SHAPES
+DENSE_DECODE_SHAPES = {
+    "gemma": (8, 8, 1, 256, 256, DECODE_SHAPES["phi3"][5]),
+    "gemma2": (8, 8, 4, 256, 256, DECODE_SHAPES["phi3"][5]),
+}
+# attention kernels at those shapes against their plain versions, fp32 (the
+# forward, the backward's dq/dk/dv, decode): sums over head_dim 256 and up to
+# 8 heads x 8192 queries in other orders.  1.5x the 1.29e-05 read on an H100
+# at the 8192-row backward (dV; the kernel is 4.8e-06 from float64 there,
+# the plain version 1.19e-05).
+TOL_DENSE_ATTN = 2e-5
+# gemma2 at full width, max |diff| / max |value|: prefill against lockstep
+# decode on the card (10b, 10c), phase 7b's tolerance
+TOL_PREFILL_DECODE = TOL_JAMBA_DECODE
+DENSE_ARCHS = ("gemma-2b", "gemma2-2b", "deepseek-7b")
+
+
+def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
+    """10a: the kernels at the dense families' shapes against their plain
+    versions on the card, timed beside their bounds, plain versions and
+    library calls (SDPA has no softcap: "none" there), into each kernel's
+    entry as ``dense`` rows."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.fused_swiglu import swiglu_bwd
+    from repro_torch.kernels.ref import naive_swiglu_act_bwd
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    rows = {name: [] for name in ("flash_attention", "flash_attention_bwd", "flash_decode",
+                                  "fused_swiglu", "swiglu_bwd")}
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    for name, (B, S, H, Hkv, D, win, cap) in DENSE_ATTN.items():
+        q, k, v = rnd(B, S, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        dout = rnd(B, S, H, D, scale=1.0)
+        kw = dict(window=win, softcap=cap)
+        what = f"({B}, {S}, {H}, {Hkv}, {D}) causal window={win} softcap={cap}"
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        f_err = max_err(out, ops.plain_flash_attention(q, k, v, **kw))
+        check(f_err, TOL_DENSE_ATTN, f"flash_attention {name} {what}")
+        got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        b_err = max(max_err(a, b) for a, b in
+                    zip(got, ops.plain_flash_attention_bwd(q, k, v, dout, **kw)))
+        check(b_err, TOL_DENSE_ATTN, f"flash_attention_bwd {name} {what} dq/dk/dv")
+        if S == 8192:
+            check(max(max_err(a, b) for a, b in
+                      zip(got, attention_bwd_float64(torch, q, k, v, dout, **kw))),
+                  TOL_DENSE_ATTN, f"flash_attention_bwd {name} against float64")
+        del got
+        torch.cuda.empty_cache()
+        f_ms = time_ms([lambda: ops.flash_attention_op(q, k, v, **kw)], torch)
+        f_plain = time_ms([lambda: ops.plain_flash_attention(q, k, v, **kw)], torch)
+        b_ms = time_ms([lambda: flash_attention_bwd(q, k, v, out, lse, dout, **kw)], torch)
+        b_plain = time_ms([lambda: ops.plain_flash_attention_bwd(q, k, v, dout, **kw)], torch)
+        f_lib = b_lib = None
+        if cap is None and win is None:
+            # SDPA on the heads expanded to q's beforehand (outside the timing)
+            qt, kt, vt = (t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2).detach()
+                          .requires_grad_(True) for t in (q, k, v))
+            dt = dout.transpose(1, 2)
+            f_lib = time_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                    is_causal=True)], torch)
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+                torch.autograd.grad(o, (qt, kt, vt), dt)
+
+            b_lib = time_ms([sdpa], torch)
+            del qt, kt, vt, dt
+        fb, fby = flash_bound(B, S, H, Hkv, D, window=win, softcap=cap)
+        bb, bby = flash_bwd_bound(B, S, H, D, Hkv, win, cap)
+        lib = "none" if f_lib is None else f"{f_lib:.4f} ms"
+        print(f"  flash_attention {name}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
+              f"SDPA {lib}, bound {fb:.4f} ms ({fby}, {fb / f_ms:.1%} of it)")
+        lib = "none" if b_lib is None else f"{b_lib:.4f} ms (fwd+bwd)"
+        print(f"  flash_attention_bwd {name}: kernel {b_ms:.4f} ms, plain (autograd) "
+              f"{b_plain:.4f} ms, SDPA {lib}, bound {bb:.4f} ms ({bby}, {bb / b_ms:.1%} of it)")
+        shape = f"q/k/v ({B},{S},{H},{D}) kv {Hkv} causal window {win} softcap {cap} fp32"
+        rows["flash_attention"].append(
+            {"row": name, "max_abs_err": f_err, "ms": f_ms, "plain_ms": f_plain,
+             "bound_ms": fb, "bound_by": fby, "library_ms": f_lib, "shape": shape})
+        rows["flash_attention_bwd"].append(
+            {"row": name, "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+             "bound_ms": bb, "bound_by": bby, "library_ms": b_lib, "shape": shape})
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+
+    for name, (B, H, Hkv, S, D, lens) in DENSE_DECODE_SHAPES.items():
+        cap = 50.0 if name == "gemma2" else None
+        q, k, v, clen = decode_inputs(torch, dev, g, name, shapes=DENSE_DECODE_SHAPES)
+        err = max_err(ops.flash_decode_op(q, k, v, clen, softcap=cap),
+                      ops.plain_flash_decode(q, k, v, clen, softcap=cap))
+        check(err, TOL_DENSE_ATTN, f"flash_decode {name} q ({B}, {H}, {D}) cache "
+                                   f"({B}, {S}, {Hkv}, {D}) per-row lengths softcap={cap}")
+        ms = time_ms([lambda: ops.flash_decode_op(q, k, v, clen, softcap=cap)], torch)
+        plain = time_ms([lambda: ops.plain_flash_decode(q, k, v, clen, softcap=cap)], torch)
+        lib = None
+        if cap is None:
+            a = sdpa_decode_args(torch, q, k, v, clen)
+            lib = time_ms([lambda: F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                                  attn_mask=a[3])], torch)
+        bms, by = decode_bound(name, shapes=DENSE_DECODE_SHAPES)
+        print(f"  flash_decode {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+        rows["flash_decode"].append(
+            {"row": name, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+             "bound_by": by, "library_ms": lib,
+             "shape": f"q ({B},{H},{D}) cache ({B},{S},{Hkv},{D}) lens sum {sum(lens)} "
+                      f"softcap {cap} fp32"})
+
+    # gemma2's MLP: GeGLU at d_model 2304, d_ff 9216, a decode step's 8 rows
+    # and a 4096-row slice of its prefill
+    D, Fd = 2304, 9216
+    w = (rnd(D, Fd, scale=D ** -0.5), rnd(D, Fd, scale=D ** -0.5), rnd(Fd, D, scale=Fd ** -0.5))
+    for T in (8, 4096):
+        rows["fused_swiglu"].append({"row": f"gemma2_T{T}", **time_swiglu(
+            torch, ops, F, rnd(T, D, scale=1.0), w, "gemma2", act="gelu_tanh")})
+    del w
+    # its elementwise gradient at the training micro-batch (8192 rows).  Its
+    # 75.5 M draws of N(0, 4) reach products of order 1000 in the tails,
+    # where the last bit of an fp32 value is above TOL_ELEMENTWISE: held by
+    # max |err| / (1 + |plain|), as phase 3b holds its long sums
+    T = 8192
+    gg, uu, dh = (rnd(T, Fd, scale=2.0) for _ in range(3))
+    pairs = list(zip(swiglu_bwd(gg, uu, dh, "gelu_tanh"),
+                     naive_swiglu_act_bwd(gg, uu, dh, "gelu_tanh")))
+    err = max(max_err(a, b) for a, b in pairs)
+    print(f"  swiglu_bwd elementwise ({T}, {Fd}) gelu_tanh: max abs err {err:.3e}, largest "
+          f"|plain| {max(float(b.abs().max()) for _, b in pairs):.1f}")
+    check(max(max_err_rel(a, b) for a, b in pairs), TOL_ELEMENTWISE,
+          f"swiglu_bwd elementwise ({T}, {Fd}) gelu_tanh", "max |err| / (1 + |plain|)")
+    del pairs
+    ms = time_ms([lambda: swiglu_bwd(gg, uu, dh, "gelu_tanh")], torch)
+    plain = time_ms([lambda: naive_swiglu_act_bwd(gg, uu, dh, "gelu_tanh")], torch)
+    bms, by = bound(6 * 4 * T * Fd, 0)
+    print(f"  swiglu_bwd ({T}, {Fd}) gelu_tanh: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bms:.4f} ms ({by})")
+    rows["swiglu_bwd"].append({"row": "gemma2_train", "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                               "library_ms": None,
+                               "shape": f"g/u/dh ({T},{Fd}) fp32 gelu_tanh"})
+    del gg, uu, dh
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        entries[name]["dense"] = r
+
+
+def phase_dense_parity(torch, dev) -> None:
+    """10b: one gemma2 period (a local and a global layer) at published
+    widths, card vs CPU: the logits at every position of 2 x 64 tokens, 16
+    lockstep decode steps (and on the card against the prefill's logits at
+    those positions), then the loss and every gradient leaf of an
+    uncompressed step on 2 virtual stages x 2 micro-batches, the tied
+    embedding's (its lookup's and the head's uses summed) named apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import head_logits, init_model, model_forward
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
+    from repro_torch.runtime.train import build_train_step
+
+    cfg = get_config("gemma2-2b").replace(n_layers=2)
+    B, S, steps, P, M = 2, 64, 16, 2, 2
+    params = init_model(torch.Generator(device=dev).manual_seed(4), cfg, dev)
+    cpu = torch.device("cpu")
+    params_cpu = _tree_to(params, cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(5))
+    res = {}
+    for side, device, p in (("card", dev, params), ("cpu", cpu, params_cpu)):
+        with torch.inference_mode():
+            h, _ = model_forward(p, tokens.to(device), cfg)
+            logits = head_logits(p, h, cfg).cpu()
+        ss = build_serve_step(cfg, batch_global=B, cache_len=steps)
+        states = prepare_serve_states(cfg, ss.spec.plan, B, steps, device)
+        dec = torch.stack([ss.step_fn(p, tokens[:, t].to(device), t, states)[0].cpu()
+                           for t in range(steps)], 1)
+        ts = build_train_step(cfg, B, stage=P, n_micro=M, device=device)
+        (loss, _), grads = ts.grad_fn(p, ts.shard_batch(SyntheticLM(cfg.vocab_size, S)
+                                                         .batch(0, B)))
+        res[side] = (logits, dec, loss.cpu(), [t.cpu() for t in tree_leaves(grads)],
+                     grads["embed"].cpu())
+        del grads, states, h
+    (lc, dc, l_card, g_card, e_card), (lh, dh, l_cpu, g_cpu, e_cpu) = res["card"], res["cpu"]
+    if not all(bool(torch.isfinite(x).all()) for x in (lc, dc, l_card, *g_card)):
+        raise AssertionError("non-finite logits, loss or gradient on the card")
+    check(_rel(torch, lc, lh), TOL_GRAD_REL,
+          f"gemma2 period full width logits card vs CPU ({B}x{S}, vocab {cfg.vocab_size}), "
+          "relative", "max |diff| / max |value|")
+    check(_rel(torch, dc, dh), TOL_GRAD_REL,
+          f"gemma2 period full width {steps} lockstep decode steps card vs CPU",
+          "max |diff| / max |value|")
+    check(_rel(torch, dc, lc[:, :steps]), TOL_PREFILL_DECODE,
+          f"gemma2 period full width prefill vs {steps} lockstep decode steps on the card",
+          "max |diff| / max |value|")
+    check(_rel(torch, l_card, l_cpu), TOL_TRAIN_LOSS,
+          f"gemma2 period full width loss card vs CPU (P={P}, M={M}, {B}x{S}), relative")
+    check(_rel(torch, e_card, e_cpu), TOL_GRAD_REL,
+          "gemma2 period full width tied embedding's gradient card vs CPU, relative",
+          "max |diff| / max |value|")
+    check(max(_rel(torch, a, b) for a, b in zip(g_card, g_cpu)), TOL_GRAD_REL,
+          f"gemma2 period full width gradients card vs CPU, {len(g_card)} leaves, worst "
+          "relative", "max |diff| / max |value|")
+    del params, params_cpu, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_window_wrap(torch, ops, dev, card: str) -> None:
+    """10c: one gemma2 period at full width and batch 1 decodes 4160
+    positions one at a time (the local layer's cache is a ring of 4096
+    slots, which wraps at position 4096; the global layer's holds all 4160);
+    the logits of the last 8 against one prefill of the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import head_logits, init_model, model_forward
+    from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
+
+    cfg = get_config("gemma2-2b").replace(n_layers=2)
+    n, last = 4160, 8
+    window = cfg.pattern[0].window
+    params = init_model(torch.Generator(device=dev).manual_seed(6), cfg, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    ss = build_serve_step(cfg, batch_global=1, cache_len=n)
+    states = prepare_serve_states(cfg, ss.spec.plan, 1, n, dev)
+    slots = [st["mixer"]["k"].shape[2] for st in states]
+    if slots != [window, n]:
+        raise AssertionError(f"cache slots {slots}, not a ring of {window} and {n}")
+    dec = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n):
+        logits = ss.step_fn(params, tokens[:, t], t, states)[0]
+        if t >= n - last:
+            dec.append(logits)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    with torch.inference_mode():
+        h, _ = model_forward(params, tokens, cfg)
+        want = head_logits(params, h[:, -last:], cfg)
+    got = torch.stack(dec, 1)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite decode logits")
+    print(f"  decoded {n} positions at {ms:.3f} ms/step (batch 1, 2 layers); the local "
+          f"layer's ring of {window} slots wrapped at position {window}, {n - window} "
+          f"positions before the end; card {card}")
+    check(_rel(torch, got, want), TOL_PREFILL_DECODE,
+          f"gemma2 period full width: the last {last} of {n} decode steps vs one prefill",
+          "max |diff| / max |value|")
+    del params, states, h, want, got, dec
+    torch.cuda.empty_cache()
+
+
+def phase_dense_train(torch, ops, dev, card: str) -> dict:
+    """10e: gemma2-2b whole (26 layers, published widths) through
+    ``launch.train --stage 2 --seq 8192 --global-batch 2 --n-micro 2
+    --compress int8 --bucket-mb 256 --no-error-feedback``, 1 warm-up and 2
+    timed steps: at its published context the local layers' window binds;
+    every step's launch counts held against what the path implies, and none
+    outside the steps; a profiler table of one more step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launcher
+
+    cfg = get_config("gemma2-2b")
+    L, P, M, B, S, steps = cfg.n_layers, 2, 2, 2, 8192, 3
+    argv = ["--arch", cfg.name, "--stage", str(P), "--n-micro", str(M), "--global-batch",
+            str(B), "--seq", str(S), "--steps", str(steps), "--compress", "int8",
+            "--bucket-mb", "256", "--no-error-feedback", "--log-every", "1"]
+    marks, peaks = [], []
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES), None))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step)
+    launches = dict(ops.LAUNCHES)
+    ts = res["ts"]
+    nb = len(ts.buckets)
+    if ts.spec.ranges != ((0, 7), (7, 13)):
+        raise AssertionError(f"the uniform split {ts.spec.ranges} is not ((0, 7), (7, 13))")
+    _check_marks(marks, launches, lambda label, extra: _train_counts(L, M, P, nb))
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    per = {k: v for k, v in _train_counts(L, M, P, nb).items() if v}
+    print(f"train gemma2-2b full width fp32 ({L} layers), {P} virtual stages "
+          f"{ts.spec.ranges} x {M} micro-batches, batch {B}x{S} (window {cfg.pattern[0].window} "
+          f"on the local layers), int8 wire ({nb} gradient buckets): {ms_step:.1f} ms/step "
+          f"over {res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; peak memory "
+          f"{max(peaks) / 1e9:.3f} GB (each step {[round(x / 1e9, 3) for x in peaks]}); "
+          f"launches a step {per}; losses {[round(x, 6) for x in losses]}; card {card}")
+    params, opt_state = res["params"], res["opt_state"]
+    del res
+    batch = ts.shard_batch(SyntheticLM(cfg.vocab_size, S).batch(steps, B))
+    busy_ms, wall_ms = profile_train_step(torch, ts, params, opt_state, batch)
+    del params, opt_state, ts, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gb": max(peaks) / 1e9,
+            "busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3205,6 +3596,23 @@ def main() -> int:
     print("phase 8a: an rwkv6-7b layer at full width, card vs CPU")
     phase_rwkv_layer(torch, dev)
     rwkv = phase_rwkv_serve(torch, ops, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 10a: kernels at the dense families' shapes against their plain versions")
+    phase_dense_kernels(torch, ops, F, dev, {e["name"]: e for e in entries})
+    print("phase 10b: a gemma2 period at full width, card vs CPU")
+    phase_dense_parity(torch, dev)
+    print("phase 10c: the local window's ring wraps on the card (4160 decode steps)")
+    phase_window_wrap(torch, ops, dev, card)
+    dense_serve = {}
+    for arch in DENSE_ARCHS:
+        print(f"phase 10d: serve {arch} whole at full width")
+        dense_serve[arch] = phase_serve(torch, ops, dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 10e: train gemma2-2b whole at seq 8192, uniform split")
+    dense_train = phase_dense_train(torch, ops, dev, card)
+    dense_plan = phase_plan_train(torch, ops, dev, card, arch="gemma2-2b", label="10f")
     print("phase 9: flash attention's device times at the training shape")
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 9b: the Mamba scan's device time at the Jamba prefill's shape")
@@ -3222,7 +3630,11 @@ def main() -> int:
                    "fail_train": fail_train["launches"][e["name"]],
                    "portfolio_train": portfolio["launches"][e["name"]],
                    "portfolio_churn": churn["launches"][e["name"]],
-                   "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]]}
+                   "jamba_serve": jamba[e["name"]], "rwkv_serve": rwkv[e["name"]],
+                   **{f"{arch}_serve": dense_serve[arch]["launches"][e["name"]]
+                      for arch in DENSE_ARCHS},
+                   "gemma2_train": dense_train["launches"][e["name"]],
+                   "gemma2_plan_train": dense_plan["launches"][e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")
         e["launches"] = sum(by_path.values())

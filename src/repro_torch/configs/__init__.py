@@ -9,20 +9,19 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import phi3_mini, rwkv6_7b
+from . import deepseek_7b, gemma2_2b, gemma_2b, phi3_mini, rwkv6_7b
 from .common import smoke_reduce
 
-_MODULES = (phi3_mini, rwkv6_7b)
+_MODULES = (phi3_mini, gemma_2b, gemma2_2b, deepseek_7b, rwkv6_7b)
 
 ARCH_IDS: tuple[str, ...] = tuple(m.ARCH_ID for m in _MODULES)
 _BY_ID = {m.ARCH_ID: m for m in _MODULES}
 
-# ids of ``repro.configs`` whose families (MoE, MLA, audio, VLM,
-# or dense variants not yet held against the reference) wait for later slices
+# ids of ``repro.configs`` whose families (MoE, MLA, audio, VLM) wait for
+# later slices
 NOT_PORTED = (
-    "phi3.5-moe-42b-a6.6b", "gemma-2b", "jamba-1.5-large-398b",
-    "musicgen-large", "deepseek-v3-671b", "internvl2-2b", "deepseek-7b",
-    "gemma2-2b",
+    "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b", "musicgen-large",
+    "deepseek-v3-671b", "internvl2-2b",
 )
 # what is missing, where only part of a family is ported
 _MISSING = {

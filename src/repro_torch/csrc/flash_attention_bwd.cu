@@ -1,6 +1,6 @@
-// Flash attention backward: dQ, dK, dV for causal (or full), sliding-window
-// and GQA attention, recomputing the probabilities from the forward's
-// logsumexp.
+// Flash attention backward: dQ, dK, dV for causal (or full), sliding-window,
+// tanh-softcapped and GQA attention, recomputing the probabilities from the
+// forward's logsumexp.
 //
 // Replaces: the gradient of src/repro/models/attention.py
 // `blocked_causal_attention`, which repro takes by XLA autodiff; its
@@ -8,13 +8,15 @@
 // TPU), ported in flash_attention.cu.  repro has no backward Pallas kernel;
 // the port's forward runs through a kernel, so its gradient needs one.
 //
-// Math (S = scale * Q K^T, P = softmax(S) under the mask, O = P V):
+// Math (A = scale * Q K^T; S = A, or S = c tanh(A / c) under a softcap c;
+// P = softmax(S) under the mask, O = P V):
 //   Dvec_i = rowsum(dO_i * O_i)
 //   P_ij   = exp(S_ij - LSE_i)            (LSE from the forward)
 //   dV     = P^T dO,  dP = dO V^T,  dS = P * (dP - Dvec)
-//   dQ     = scale * dS K,  dK = scale * dS^T Q
-// A logit softcap would need tanh' inside dS; it has no kernel here, and the
-// Python wrapper raises NotImplementedError for it.
+//   dA     = dS, or dS * (1 - (S / c)^2) under a softcap (tanh' = 1 - tanh^2)
+//   dQ     = scale * dA K,  dK = scale * dA^T Q
+// S is recomputed from A as the forward computes it (c * tanhf(A / c)) before
+// P; every route applies the softcap's factor.
 //
 // Bound on the card: bytes.  q, k, v, o and dO read once, dq, dk and dv
 // written once, and the logsumexp: at the training shape (2, 256, 32, 96)
@@ -77,10 +79,29 @@
 //     Dvec = rowsum(dO * (O - mu)): dP - Dvec is unchanged, both terms are
 //     small.
 //
-// Other D <= 128, or unaligned rows: the SIMT kernels, a block of 256
-// threads per (64-key tile, kv head, batch row) and per (64-query tile,
-// head, batch row), 4 x 4 register tiles of S^T/dP^T and S/dP, plain fp32
-// FMAs.
+//   * Softcap: consumer 0 recomputes S = c tanh(A / c) from the raw
+//     product and P from it, and hands consumer 1 P (1 - (S / c)^2) in
+//     place of P: consumer 1 uses P only to form dS, so its dS is dA.  The
+//     kernels are instantiated with and without it (CAP), so that the
+//     instance without a softcap is the code measured below.
+//
+// Other D <= 256, or unaligned rows: the SIMT kernels, a block of 256
+// threads per (key tile, kv head, batch row) and per (query tile, head,
+// batch row), R x R register tiles of S^T/dP^T and S/dP (rows ty + 16 i,
+// columns tx + 16 j), plain fp32 FMAs.  Tiles are 16 R rows: 64 (R = 4) at
+// D <= 128, 32 (R = 2) above, where four 64-row fp32 tiles of head_dim 256
+// (Q, dO, K, V: 263 KB) would not fit in the 227 KB of shared memory a
+// block may hold; at R = 2 they take 137 KB, with room for one block an
+// SM.  Each tile's dK, dV (dQ) are summed from zero and added to the running
+// sums, so that their rounding grows with the tiles, not the queries (at
+// MQA a key's sums run over 8 heads of queries).  A simple kernel: its
+// products read shared memory once for each two FMAs, so it is held back
+// by shared-memory loads.  Measured (chip_smoke.py phase 10a, NVIDIA H100
+// 80GB HBM3 at 700.00 W) at gemma2's training micro-batch (1, 8192, 8/4,
+// 256), window 4096, softcap 50: 61.19 ms, 5.1% of its 3.12 ms bound and
+// slower than its plain version (56.22 ms); at gemma-2b's MQA prefill (2,
+// 512, 8/1, 256) 3.12 ms, where 32 blocks of the dK/dV pass fill a quarter
+// of the SMs.  A tensor-core route at head_dim 256 is later work.
 //
 // Measured (chip_smoke.py phases 3b and 9 and chip_flash_bwd_ablation.py,
 // NVIDIA H100 80GB HBM3 at 700.00 W) at the training shape: 0.1032 ms of
@@ -98,15 +119,30 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// SIMT route (head_dim not a multiple of 8, or unaligned rows): fp32 FMAs.
+// SIMT route (head_dim not a multiple of 8, above 128, or unaligned rows):
+// fp32 FMAs.
 // ---------------------------------------------------------------------------
-constexpr int BQ = 64, BK = 64, kThreads = 256;
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
   bool ok = qpos < S && kpos < S;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
+}
+
+// P from the raw product qk (q . k) and the row's natural logsumexp, as the
+// forward computes the scores; under a softcap c, dfac = dA / dS = 1 - (S /
+// c)^2 (the caller's 1 stays otherwise)
+__device__ __forceinline__ float probs(float qk, float lse, float scale, float softcap,
+                                       float& dfac) {
+  float x = qk * scale;
+  if (softcap > 0.f) {
+    const float t = tanhf(x / softcap);
+    x = softcap * t;
+    dfac = 1.f - t * t;
+  }
+  return expf(x - lse);
 }
 
 // Dvec[(b * H + h) * S + i] = sum_d dO[b, i, h, d] * (O[b, i, h, d] - mu_d): mu
@@ -139,7 +175,7 @@ flash_bwd_row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
     }
   } else {
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {   // D <= 128: every load of the row at once
+    for (int it = 0; it < 8; ++it) {   // D <= 256: every load of the row at once
       const int d = lane + 32 * it;
       if (d < D) acc += to_f(orow[d]) * to_f(drow[d]);
     }
@@ -149,15 +185,23 @@ flash_bwd_row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) dvec[r] = acc;
 }
 
-// NDK = ceil(D / 16): head_dim columns of an accumulator tile per thread.
-template <typename T, int NDK>
+// Words of shared memory of the SIMT kernels: four BT x (D + 1) operand
+// tiles, the P^T / dS^T (or dS) tiles, and the tile's LSE and Dvec
+__host__ __device__ constexpr int simt_words(int BT, int D, int n_pt) {
+  return 4 * BT * (D + 1) + n_pt * BT * (BT + 1) + 2 * BT;
+}
+
+// NDK = ceil(D / 16): head_dim columns of an accumulator tile per thread;
+// R: rows per thread of a 16 R-row tile.
+template <typename T, int NDK, int R>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ dvec,
                            T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv,
                            int D, Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-                           int causal, int window) {
+                           int causal, int window, float softcap) {
+  constexpr int BQ = 16 * R, BK = 16 * R;
   extern __shared__ float smem[];
   const int DS = D + 1;                       // padded row stride: no bank conflicts
   float* Ks = smem;                           // BK x DS
@@ -165,7 +209,7 @@ flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Qs = Vs + BK * DS;                   // BQ x DS
   float* Os = Qs + BQ * DS;                   // BQ x DS (dO)
   float* Ps = Os + BQ * DS;                   // BK x (BQ + 1): P^T
-  float* dSs = Ps + BK * (BQ + 1);            // BK x (BQ + 1): dS^T
+  float* dSs = Ps + BK * (BQ + 1);            // BK x (BQ + 1): dA^T
   float* Ls = dSs + BK * (BQ + 1);            // BQ: LSE of the q tile
   float* Dv = Ls + BQ;                        // BQ: Dvec of the q tile
 
@@ -182,9 +226,9 @@ flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Vs[r * DS + d] = in ? to_f(vb[(k0 + r) * vs.s + d]) : 0.f;
   }
 
-  float dK[4][NDK], dV[4][NDK];
+  float dK[R][NDK], dV[R][NDK];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < NDK; ++c) dK[i][c] = dV[i][c] = 0.f;
 
@@ -212,49 +256,58 @@ flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       // S^T and dP^T: rows = keys ty + 16 i, columns = queries tx + 16 j
-      float st[4][4], dpt[4][4];
+      float st[R][R], dpt[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) st[i][j] = dpt[i][j] = 0.f;
       for (int d = 0; d < D; ++d) {
-        float ka[4], va[4], qa[4], oa[4];
+        float ka[R], va[R], qa[R], oa[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           ka[i] = Ks[(ty + 16 * i) * DS + d];
           va[i] = Vs[(ty + 16 * i) * DS + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           qa[j] = Qs[(tx + 16 * j) * DS + d];
           oa[j] = Os[(tx + 16 * j) * DS + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             st[i][j] += ka[i] * qa[j];
             dpt[i][j] += va[i] * oa[j];
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int kr = ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int qc = tx + 16 * j;
-          const bool ok = visible(q0 + qc, k0 + kr, S, causal, window);
-          const float p = ok ? expf(st[i][j] * scale - Ls[qc]) : 0.f;
+          float dfac = 1.f;
+          const float p = visible(q0 + qc, k0 + kr, S, causal, window)
+                              ? probs(st[i][j], Ls[qc], scale, softcap, dfac) : 0.f;
           Ps[kr * (BQ + 1) + qc] = p;
-          dSs[kr * (BQ + 1) + qc] = p * (dpt[i][j] - Dv[qc]);
+          dSs[kr * (BQ + 1) + qc] = p * (dpt[i][j] - Dv[qc]) * dfac;
         }
       }
       __syncthreads();
 
-      for (int qq = 0; qq < BQ; ++qq) {
-        float p[4], ds[4];
+      // the tile's sums from zero, then added to the running ones: the
+      // rounding of a running sum grows with the tiles (at MQA, G = 8 q
+      // heads x up to S / BQ tiles), not with every query
+      float tK[R][NDK], tV[R][NDK];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < NDK; ++c) tK[i][c] = tV[i][c] = 0.f;
+      for (int qq = 0; qq < BQ; ++qq) {
+        float p[R], ds[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
           p[i] = Ps[(ty + 16 * i) * (BQ + 1) + qq];
           ds[i] = dSs[(ty + 16 * i) * (BQ + 1) + qq];
         }
@@ -264,17 +317,24 @@ flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float o = d < D ? Os[qq * DS + d] : 0.f;
           const float qv = d < D ? Qs[qq * DS + d] : 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dV[i][c] += p[i] * o;
-            dK[i][c] += ds[i] * qv;
+          for (int i = 0; i < R; ++i) {
+            tV[i][c] += p[i] * o;
+            tK[i][c] += ds[i] * qv;
           }
         }
       }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < NDK; ++c) {
+          dV[i][c] += tV[i][c];
+          dK[i][c] += tK[i][c];
+        }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= S) continue;
     const long long row = (((long long)b * S + kpos) * Hkv + hk) * D;
@@ -289,21 +349,22 @@ flash_bwd_dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NDK>
+template <typename T, int NDK, int R>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ dvec,
                          T* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
                          Strides ks, Strides vs, Strides dos, float scale, int causal,
-                         int window) {
+                         int window, float softcap) {
+  constexpr int BQ = 16 * R, BK = 16 * R;
   extern __shared__ float smem[];
   const int DS = D + 1;
   float* Qs = smem;                           // BQ x DS
   float* Os = Qs + BQ * DS;                   // BQ x DS (dO)
   float* Ks = Os + BQ * DS;                   // BK x DS
   float* Vs = Ks + BK * DS;                   // BK x DS
-  float* dSs = Vs + BK * DS;                  // BQ x (BK + 1)
+  float* dSs = Vs + BK * DS;                  // BQ x (BK + 1): dA
   float* Ls = dSs + BQ * (BK + 1);            // BQ
   float* Dv = Ls + BQ;                        // BQ
 
@@ -325,9 +386,9 @@ flash_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Dv[tid] = in ? dvec[((long long)b * H + h) * S + q0 + tid] : 0.f;
   }
 
-  float dQ[4][NDK];
+  float dQ[R][NDK];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < NDK; ++c) dQ[i][c] = 0.f;
 
@@ -347,60 +408,70 @@ flash_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // S and dP: rows = queries ty + 16 i, columns = keys tx + 16 j
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], ka[4], va[4];
+      float qa[R], oa[R], ka[R], va[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         qa[i] = Qs[(ty + 16 * i) * DS + d];
         oa[i] = Os[(ty + 16 * i) * DS + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         ka[j] = Ks[(tx + 16 * j) * DS + d];
         va[j] = Vs[(tx + 16 * j) * DS + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] += qa[i] * ka[j];
           dp[i][j] += oa[i] * va[j];
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int qr = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int kc = tx + 16 * j;
-        const bool ok = visible(q0 + qr, k0 + kc, S, causal, window);
-        const float p = ok ? expf(s[i][j] * scale - Ls[qr]) : 0.f;
-        dSs[qr * (BK + 1) + kc] = p * (dp[i][j] - Dv[qr]);
+        float dfac = 1.f;
+        const float p = visible(q0 + qr, k0 + kc, S, causal, window)
+                            ? probs(s[i][j], Ls[qr], scale, softcap, dfac) : 0.f;
+        dSs[qr * (BK + 1) + kc] = p * (dp[i][j] - Dv[qr]) * dfac;
       }
     }
     __syncthreads();
 
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4];
+    float tQ[R][NDK];   // the key tile's sums from zero (as tK, tV above)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * (BK + 1) + kk];
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < NDK; ++c) tQ[i][c] = 0.f;
+    for (int kk = 0; kk < BK; ++kk) {
+      float ds[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) ds[i] = dSs[(ty + 16 * i) * (BK + 1) + kk];
 #pragma unroll
       for (int c = 0; c < NDK; ++c) {
         const int d = tx + 16 * c;
         const float kv = d < D ? Ks[kk * DS + d] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dQ[i][c] += ds[i] * kv;
+        for (int i = 0; i < R; ++i) tQ[i][c] += ds[i] * kv;
       }
     }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < NDK; ++c) dQ[i][c] += tQ[i][c];
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     T* row = dq + (((long long)b * S + qpos) * H + h) * D;
@@ -798,6 +869,27 @@ __device__ __forceinline__ void put_p(float* pbuf, Bars* bars, const float (&p)[
   mbar_arrive(&bars->pfull);
 }
 
+// Consumer 0's tile under a softcap c: the raw products in x become P (S =
+// c tanh(A / c) in base 2, as the forward computes it), and the hand-over
+// buffer gets P (1 - (S / c)^2), so that consumer 1's dS is dA.
+// visible(i) says whether accumulator position i is a visible pair, rv(i)
+// is its row's logsumexp in base 2.
+template <typename Vis, typename Row>
+__device__ __forceinline__ void softcap_p(float (&x)[32], float* pbuf, Bars* bars, int n,
+                                          float scale, float softcap, Vis visible_at,
+                                          Row rv) {
+  const float softcap_l2e = softcap * kLog2e;
+  if (n > 0) mbar_wait(&bars->pempty, (n - 1) & 1);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float t = tanhf(x[i] * scale / softcap);
+    const float p = visible_at(i) ? ex2(softcap_l2e * t - rv(i)) : 0.f;
+    pbuf[128 * i + threadIdx.x % 128] = p * (1.f - t * t);
+    x[i] = p;
+  }
+  mbar_arrive(&bars->pfull);
+}
+
 // The block's barriers, set up by one thread before the warpgroups split
 __device__ __forceinline__ Bars* init_bars(uint32_t* at) {
   Bars* bars = reinterpret_cast<Bars*>(at);
@@ -822,14 +914,14 @@ __device__ __forceinline__ Bars* init_bars(uint32_t* at) {
 // dK += dS^T Q.  Rows are keys and columns queries, so that P^T and dS^T
 // are A fragments as they stand.  Ring items of a tile: Q (rows), dO
 // (rows), dO (transposed), Q (transposed), C chunks each.
-template <int DP>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(BwdTile<DP>::THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k,
                             const void* __restrict__ v, const void* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ dvec,
                             void* __restrict__ dk, void* __restrict__ dv, int B, int S, int H,
                             int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
-                            float scale, int causal, int window, int bf16) {
+                            float scale, int causal, int window, float softcap, int bf16) {
   using Tl = BwdTile<DP>;
   constexpr int C = Tl::C;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
@@ -905,7 +997,16 @@ flash_bwd_dkdv_wgmma_kernel(const void* __restrict__ q, const void* __restrict__
         rv[2 * i + j] = qq < S ? rowv[qq] * (w == 0 ? kLog2e : 1.f) : 0.f;
       }
     ring_product<DP>(x, res, ring, bars, w, first + w * C, phase);
-    if (w == 0) {
+    if (CAP && w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+      softcap_p(
+          x, pbuf, bars, tile, scale, softcap,
+          [&](int i) {
+            return full || visible(q0 + 8 * (i / 4) + 2 * t + (i & 1), i % 4 < 2 ? kr0 : kr1, S,
+                                   causal, window);
+          },
+          [&](int i) { return rv[2 * (i / 4) + (i & 1)]; });
+    } else if (w == 0) {
       const bool full = tile_full(q0, k0, S, causal, window);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -936,14 +1037,14 @@ flash_bwd_dkdv_wgmma_kernel(const void* __restrict__ q, const void* __restrict__
 // (handed to warpgroup 1); warpgroup 1: dP = dO V^T, dS = P (dP - Dvec),
 // dQ += dS K.  Ring items of a key tile: K (rows), V (rows), K
 // (transposed), C chunks each.
-template <int DP>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(BwdTile<DP>::THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k,
                           const void* __restrict__ v, const void* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dvec,
                           void* __restrict__ dq, int B, int S, int H, int Hkv, int D, Strides qs,
                           Strides ks, Strides vs, Strides dos, float scale, int causal,
-                          int window, int bf16) {
+                          int window, float softcap, int bf16) {
   using Tl = BwdTile<DP>;
   constexpr int C = Tl::C;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
@@ -1010,6 +1111,17 @@ flash_bwd_dq_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k
   for (int j = 0; j < nt; ++j) {
     const int k0 = kv_lo + j * kTile, first = j * 3 * C;
     ring_product<DP>(x, res, ring, bars, w, first + w * C, phase);
+    if (CAP && w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+      softcap_p(
+          x, pbuf, bars, j, scale, softcap,
+          [&](int i) {
+            return full || visible(i % 4 < 2 ? qr0 : qr1, k0 + 8 * (i / 4) + 2 * t + (i & 1), S,
+                                   causal, window);
+          },
+          [&](int i) { return i % 4 < 2 ? rv0 : rv1; });
+      continue;
+    }
     if (w == 0) {
       const bool full = tile_full(q0, k0, S, causal, window);
 #pragma unroll
@@ -1038,14 +1150,14 @@ flash_bwd_dq_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k
   }
 }
 
-template <int DP>
+template <int DP, bool CAP>
 int launch_wgmma(int dtype, const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B, int S,
                  int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
-                 float scale, int causal, int window, cudaStream_t st) {
+                 float scale, int causal, int window, float softcap, cudaStream_t st) {
   using Tl = BwdTile<DP>;
-  auto kv_kernel = flash_bwd_dkdv_wgmma_kernel<DP>;
-  auto q_kernel = flash_bwd_dq_wgmma_kernel<DP>;
+  auto kv_kernel = flash_bwd_dkdv_wgmma_kernel<DP, CAP>;
+  auto q_kernel = flash_bwd_dq_wgmma_kernel<DP, CAP>;
   cudaError_t err;
   const void* kernels[2] = {reinterpret_cast<const void*>(kv_kernel),
                             reinterpret_cast<const void*>(q_kernel)};
@@ -1061,54 +1173,58 @@ int launch_wgmma(int dtype, const void* q, const void* k, const void* v, const v
   const int nt = (S + kTile - 1) / kTile;
   kv_kernel<<<nt * Hkv * B, Tl::THREADS, Tl::SMEM, st>>>(q, k, v, dout, lse, dvec, dk, dv, B, S,
                                                          H, Hkv, D, qs, ks, vs, dos, scale,
-                                                         causal, window, dtype == 1);
+                                                         causal, window, softcap, dtype == 1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   q_kernel<<<nt * H * B, Tl::THREADS, Tl::SMEM, st>>>(q, k, v, dout, lse, dvec, dq, B, S, H, Hkv,
                                                       D, qs, ks, vs, dos, scale, causal, window,
-                                                      dtype == 1);
+                                                      softcap, dtype == 1);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NDK>
+template <typename T, int NDK, int R>
 int launch_simt(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                 const float* dvec, void* dq, void* dk, void* dv, int B, int S, int H, int Hkv,
                 int D, Strides qs, Strides ks, Strides vs, Strides dos, float scale, int causal,
-                int window, cudaStream_t st) {
+                int window, float softcap, cudaStream_t st) {
+  constexpr int BT = 16 * R;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const size_t smem_kv = sizeof(float) * (size_t)(4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_simt_kernel<T, NDK>,
+  const size_t smem_kv = sizeof(float) * (size_t)simt_words(BT, D, 2);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_simt_kernel<T, NDK, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_simt_kernel<T, NDK><<<dim3((S + BK - 1) / BK, Hkv, B), kThreads, smem_kv, st>>>(
+  flash_bwd_dkdv_simt_kernel<T, NDK, R><<<dim3((S + BT - 1) / BT, Hkv, B), kThreads, smem_kv, st>>>(
       qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D,
-      qs, ks, vs, dos, scale, causal, window);
+      qs, ks, vs, dos, scale, causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_q = sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-  err = cudaFuncSetAttribute(flash_bwd_dq_simt_kernel<T, NDK>,
+  const size_t smem_q = sizeof(float) * (size_t)simt_words(BT, D, 1);
+  err = cudaFuncSetAttribute(flash_bwd_dq_simt_kernel<T, NDK, R>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_simt_kernel<T, NDK><<<dim3((S + BQ - 1) / BQ, H, B), kThreads, smem_q, st>>>(
+  flash_bwd_dq_simt_kernel<T, NDK, R><<<dim3((S + BT - 1) / BT, H, B), kThreads, smem_q, st>>>(
       qt, kt, vt, dot, lse, dvec, static_cast<T*>(dq), S, H, Hkv, D, qs, ks, vs, dos,
-      scale, causal, window);
+      scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
+// the SIMT instance for head_dim D: 64-row tiles to 128, 32-row tiles to 256
 template <typename T>
 int dispatch_simt(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B,
                   int S, int H, int Hkv, int D, Strides qs, Strides ks, Strides vs, Strides dos,
-                  float scale, int causal, int window, cudaStream_t st) {
-  if (D <= 64)
-    return launch_simt<T, 4>(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
-  if (D <= 96)
-    return launch_simt<T, 6>(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
-  if (D <= 128)
-    return launch_simt<T, 8>(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale, causal, window, st);
+                  float scale, int causal, int window, float softcap, cudaStream_t st) {
+  auto go = [&](auto launch) {
+    return launch(q, k, v, dout, lse, dvec, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs, dos, scale,
+                  causal, window, softcap, st);
+  };
+  if (D <= 64) return go(launch_simt<T, 4, 4>);
+  if (D <= 96) return go(launch_simt<T, 6, 4>);
+  if (D <= 128) return go(launch_simt<T, 8, 4>);
+  if (D <= 256) return go(launch_simt<T, 16, 2>);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1134,15 +1250,16 @@ extern "C" {
 // unit stride on D, (B, S, H) strides in elements in qs/ks/vs/dos.  out: the
 // forward's (B, S, H, D) output, contiguous; lse: its (B, H, S) float32
 // logsumexp; dvec: (B, H, S) float32 scratch.  dq: (B, S, H, D) and dk/dv:
-// (B, S, Hkv, D) contiguous outputs.  window <= 0: no window.  D <= 128.
+// (B, S, Hkv, D) contiguous outputs.  window <= 0: no window; softcap <= 0:
+// none (as the forward was called).  D <= 256.
 int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* dvec, void* dq, void* dk, void* dv, int B, int S,
                         int H, int Hkv, int D, const long long* qs,
                         const long long* ks, const long long* vs,
                         const long long* dos, float scale, int causal,
-                        int window, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv || D <= 0 || D > 128 || (dtype != 0 && dtype != 1))
+                        int window, float softcap, void* stream) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv || D <= 0 || D > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides q3{qs[0], qs[1], qs[2]}, k3{ks[0], ks[1], ks[2]}, v3{vs[0], vs[1], vs[2]},
@@ -1156,25 +1273,29 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
     return reinterpret_cast<uintptr_t>(p) % (dtype == 1 ? 8 : 16) == 0 && s.b % 4 == 0 &&
            s.s % 4 == 0 && s.h % 4 == 0;
   };
-  const bool tc = D % 8 == 0 && al(q, q3) && al(k, k3) && al(v, v3) && al(dout, d3);
+  const bool tc = D % 8 == 0 && D <= 128 && al(q, q3) && al(k, k3) && al(v, v3) && al(dout, d3);
   int err = dtype == 0 ? launch_row_dot<float>(tc, out, dout, v, df, B, S, H, Hkv, D, d3, v3, st)
                        : launch_row_dot<__nv_bfloat16>(tc, out, dout, v, df, B, S, H, Hkv, D, d3,
                                                        v3, st);
   if (err != 0) return err;
   if (tc) {
-    // the tensor-core route, one instance per head_dim padded to DP
+    // the tensor-core route, one instance per head_dim padded to DP, with
+    // and without a softcap
     auto go = [&](auto launch_dp) {
       return launch_dp(dtype, q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3,
-                       scale, causal, window, st);
+                       scale, causal, window, softcap, st);
     };
-    if (D <= 32) return go(launch_wgmma<32>);
-    if (D <= 64) return go(launch_wgmma<64>);
-    if (D <= 96) return go(launch_wgmma<96>);
-    return go(launch_wgmma<128>);
+    const bool cap = softcap > 0.f;
+    if (D <= 32) return cap ? go(launch_wgmma<32, true>) : go(launch_wgmma<32, false>);
+    if (D <= 64) return cap ? go(launch_wgmma<64, true>) : go(launch_wgmma<64, false>);
+    if (D <= 96) return cap ? go(launch_wgmma<96, true>) : go(launch_wgmma<96, false>);
+    return cap ? go(launch_wgmma<128, true>) : go(launch_wgmma<128, false>);
   }
   if (dtype == 0)
-    return dispatch_simt<float>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, st);
-  return dispatch_simt<__nv_bfloat16>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, st);
+    return dispatch_simt<float>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3, v3,
+                                d3, scale, causal, window, softcap, st);
+  return dispatch_simt<__nv_bfloat16>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3,
+                                      v3, d3, scale, causal, window, softcap, st);
 }
 
 const char* flash_attention_bwd_error_string(int err) {

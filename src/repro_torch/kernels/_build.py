@@ -55,7 +55,7 @@ ARGTYPES = {
                         _L3, _L3, _L3, _F, _I, _I, _F, _P],
     "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _L3, _L3, _L3, _L3,
-                            _F, _I, _I, _P],
+                            _F, _I, _I, _F, _P],
     "fused_swiglu": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swiglu_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _P],
     "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -54,17 +54,17 @@ def flash_attention(q, k, v, *, scale: float | None = None, causal: bool = True,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float | None = None,
-                        causal: bool = True, window: int | None = None):
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None):
     """(dq, dk, dv) of :func:`flash_attention` for the cotangent ``dout``,
-    from the forward's ``out`` and ``lse``.  dk/dv are summed over the q
-    heads of each GQA group.  CUDA tensors only; head_dim <= 128."""
+    from the forward's ``out`` and ``lse`` (the forward called with the same
+    ``scale``, ``causal``, ``window`` and ``softcap``).  dk/dv are summed
+    over the q heads of each GQA group.  CUDA tensors only; head_dim <= 256
+    (the tensor cores to 128, the SIMT kernels above)."""
     code = _check("flash_attention_bwd", q, k, v)
     _build.dtype_code("flash_attention_bwd", q, out, dout)
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    if D > 128:
-        raise NotImplementedError(f"flash_attention backward kernel takes "
-                                  f"head_dim <= 128, not {D}")
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, H, S) \
             or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: out/dout must match q and lse "
@@ -85,14 +85,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float | None = None,
             _build.strides3(q), _build.strides3(k), _build.strides3(v),
             _build.strides3(dout), D ** -0.5 if scale is None else scale,
             int(causal), -1 if window is None else int(window),
-            _build.stream_of(q))
+            0.0 if softcap is None else float(softcap), _build.stream_of(q))
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Forward: the flash kernel, writing the logsumexp too; backward: the
-    backward kernel.  A softcap has no backward kernel: asking for its
-    gradient raises ``NotImplementedError``."""
+    backward kernel, with the same scale, mask and softcap."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, softcap):
@@ -105,11 +104,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         scale, causal, window, softcap = ctx.cfg
-        if softcap is not None:
-            raise NotImplementedError(
-                "flash_attention backward: no kernel for a logit softcap "
-                f"(softcap={softcap}); the port trains only configs without one")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, scale=scale,
-                                         causal=causal, window=window)
+                                         causal=causal, window=window, softcap=softcap)
         return dq, dk, dv, None, None, None, None

@@ -10,6 +10,7 @@ chunk at a time.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import apply_periods, decode_periods, init_period_states, init_periods
 from .config import ModelConfig
@@ -61,12 +62,27 @@ def model_forward(params, tokens, cfg: ModelConfig, remat: bool = True):
     return apply_periods(params["periods"], x, positions, cfg, remat), positions
 
 
+def _ce_chunk(hi, head_w, ti, mi, softcap):
+    """One chunk's (masked loss sum, masked correct count)."""
+    logits = (hi @ head_w).float()
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ti[..., None])[..., 0]
+    loss = (lse - gold) * mi
+    acc = (logits.argmax(-1) == ti) * mi
+    return loss.sum(), acc.sum()
+
+
 def chunked_ce_loss(h, head_w, targets, mask, softcap=None, chunk: int = 2048):
     """Cross entropy without materialising the full logits.
 
     h: (B, S, D); head_w: (D, V); targets/mask: (B, S).  Returns (sum_loss,
     sum_count, sum_correct) as float32 scalars.  S is zero-padded to whole
-    chunks, as ``repro`` pads it.
+    chunks, as ``repro`` pads it.  While autograd records, each chunk is one
+    checkpoint: its backward recomputes the chunk's logits, so no chunk's
+    logits outlive it (at a vocabulary of 256000 and 16384 tokens, the
+    softcap's and the logsumexp's saved copies would take 33.6 GB).
     """
     B, S, D = h.shape
     chunk = min(chunk, S)
@@ -76,18 +92,14 @@ def chunked_ce_loss(h, head_w, targets, mask, softcap=None, chunk: int = 2048):
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         targets = torch.nn.functional.pad(targets, (0, pad))
         mask = torch.nn.functional.pad(mask, (0, pad))
+    remat = torch.is_grad_enabled() and (h.requires_grad or head_w.requires_grad)
     s_loss = s_cnt = s_acc = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
-        ti, mi = targets[:, sl].long(), mask[:, sl]
-        logits = (h[:, sl] @ head_w).float()
-        if softcap is not None:
-            logits = softcap * torch.tanh(logits / softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ti[..., None])[..., 0]
-        loss = (lse - gold) * mi
-        acc = (logits.argmax(-1) == ti) * mi
-        s_loss, s_cnt, s_acc = s_loss + loss.sum(), s_cnt + mi.sum(), s_acc + acc.sum()
+        args = (h[:, sl], head_w, targets[:, sl].long(), mask[:, sl], softcap)
+        loss, acc = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                     else _ce_chunk(*args))
+        s_loss, s_cnt, s_acc = s_loss + loss, s_cnt + mask[:, sl].sum(), s_acc + acc
     return s_loss, s_cnt, s_acc
 
 

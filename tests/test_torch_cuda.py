@@ -127,6 +127,7 @@ ATTN_CASES = [
     (2, 65, 16, 4, 128, None, None, True, torch.float32),      # 64-row tile
     (1, 200, 4, 2, 160, None, None, True, torch.float32),      # the SIMT route
     (2, 200, 8, 2, 128, None, None, True, torch.bfloat16),     # bf16 on the tensor cores
+    (2, 512, 8, 4, 256, None, 50.0, True, torch.float32),      # gemma2: head_dim 256, softcap
 ]
 
 
@@ -295,40 +296,50 @@ def test_roundtrip_ef_card_equals_cpu(dev, fmt):
 
 
 BWD_CASES = [
-    # (B, S, H, Hkv, D, window, causal, dtype); head_dim <= 128 and a
-    # multiple of 8 takes the tensor-core route, other head_dims the SIMT one
-    (2, 256, 32, 32, 96, None, True, torch.float32),     # the slice's training shape
-    (2, 192, 8, 2, 64, None, True, torch.float32),       # GQA, ragged S
-    (1, 256, 4, 1, 128, 64, True, torch.float32),        # MQA + window
-    (2, 130, 2, 2, 64, None, False, torch.float32),      # non-causal, ragged
-    (1, 100, 4, 2, 32, 40, False, torch.float32),        # non-causal window
-    (2, 160, 4, 2, 64, None, True, torch.bfloat16),
-    (2, 200, 8, 2, 32, None, True, torch.float32),       # head_dim 32, GQA 4
-    (1, 300, 8, 2, 96, None, True, torch.float32),       # head_dim 96, GQA 4, ragged
-    (1, 256, 16, 2, 128, None, True, torch.float32),     # Jamba's head_dim, GQA 8
-    (1, 200, 4, 2, 40, None, True, torch.float32),       # head_dim 40: padded to 64
-    (1, 190, 4, 4, 96, 70, False, torch.float32),        # non-causal window, head_dim 96
-    (3, 1, 8, 2, 64, None, True, torch.float32),         # S = 1
-    (2, 63, 8, 2, 96, None, True, torch.float32),        # both sides of a
-    (2, 65, 4, 4, 128, None, True, torch.float32),       # 64-row tile
-    (1, 150, 4, 2, 100, None, True, torch.float32),      # head_dim 100: the SIMT route
-    (2, 128, 4, 1, 96, 50, True, torch.bfloat16),        # bf16 on the tensor cores, window
+    # (B, S, H, Hkv, D, window, softcap, causal, dtype); head_dim <= 128 and
+    # a multiple of 8 takes the tensor-core route, other head_dims the SIMT
+    # one (64-row tiles to 128, 32-row tiles above)
+    (2, 256, 32, 32, 96, None, None, True, torch.float32),     # the slice's training shape
+    (2, 192, 8, 2, 64, None, None, True, torch.float32),       # GQA, ragged S
+    (1, 256, 4, 1, 128, 64, None, True, torch.float32),        # MQA + window
+    (2, 130, 2, 2, 64, None, None, False, torch.float32),      # non-causal, ragged
+    (1, 100, 4, 2, 32, 40, None, False, torch.float32),        # non-causal window
+    (2, 160, 4, 2, 64, None, None, True, torch.bfloat16),
+    (2, 200, 8, 2, 32, None, None, True, torch.float32),       # head_dim 32, GQA 4
+    (1, 300, 8, 2, 96, None, None, True, torch.float32),       # head_dim 96, GQA 4, ragged
+    (1, 256, 16, 2, 128, None, None, True, torch.float32),     # Jamba's head_dim, GQA 8
+    (1, 200, 4, 2, 40, None, None, True, torch.float32),       # head_dim 40: padded to 64
+    (1, 190, 4, 4, 96, 70, None, False, torch.float32),        # non-causal window, head_dim 96
+    (3, 1, 8, 2, 64, None, None, True, torch.float32),         # S = 1
+    (2, 63, 8, 2, 96, None, None, True, torch.float32),        # both sides of a
+    (2, 65, 4, 4, 128, None, None, True, torch.float32),       # 64-row tile
+    (1, 150, 4, 2, 100, None, None, True, torch.float32),      # head_dim 100: the SIMT route
+    (2, 128, 4, 1, 96, 50, None, True, torch.bfloat16),        # bf16 on the tensor cores, window
+    (2, 512, 8, 1, 256, None, None, True, torch.float32),      # gemma-2b: head_dim 256, MQA
+    (2, 300, 8, 4, 256, None, 50.0, True, torch.float32),      # gemma2's global layer, ragged
+    (1, 200, 8, 4, 256, 64, 50.0, True, torch.float32),        # gemma2's local layer: window
+    (2, 33, 4, 2, 256, None, None, True, torch.float32),       # both sides of a 32-row tile
+    (2, 96, 4, 2, 256, 40, 30.0, False, torch.bfloat16),       # bf16 at 256, non-causal window
+    (2, 130, 8, 2, 96, None, 50.0, True, torch.float32),       # softcap on the tensor cores
+    (1, 190, 4, 4, 64, 70, 30.0, True, torch.float32),         # softcap + window there
+    (1, 150, 4, 2, 100, None, 50.0, True, torch.float32),      # softcap on the 64-row SIMT
 ]
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernel_matches_plain(dev, case):
-    B, S, H, Hkv, D, win, causal, dtype = case
+    B, S, H, Hkv, D, win, cap, causal, dtype = case
     rng = np.random.default_rng(4)
     q = _rand(rng, (B, S, H, D), dev, dtype).requires_grad_(True)
     k = _rand(rng, (B, S, Hkv, D), dev, dtype).requires_grad_(True)
     v = _rand(rng, (B, S, Hkv, D), dev, dtype).requires_grad_(True)
     dout = _rand(rng, (B, S, H, D), dev, dtype, scale=1.0)
+    kw = dict(causal=causal, window=win, softcap=cap)
     before = ops.LAUNCHES["flash_attention_bwd"]
-    out = ops.flash_attention_op(q, k, v, causal=causal, window=win)
+    out = ops.flash_attention_op(q, k, v, **kw)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
-    ref_grads = ops.plain_flash_attention_bwd(q, k, v, dout, causal=causal, window=win)
+    ref_grads = ops.plain_flash_attention_bwd(q, k, v, dout, **kw)
     torch.cuda.synchronize()
     tol = _tol(dtype)
     for name, a, b in zip("qkv", grads, ref_grads):
@@ -417,11 +428,20 @@ def test_flash_forward_lse_leaves_output_unchanged(dev):
 
 
 def test_softcap_gradient_raises(dev):
+    """A softcapped gradient no longer raises: it launches the backward
+    kernel (on the tensor cores at head_dim 64) and matches the plain
+    version; what still raises is a head_dim above the kernels' 256."""
     rng = np.random.default_rng(7)
     q, k, v = (_rand(rng, (1, 64, 2, 64), dev).requires_grad_(True) for _ in range(3))
-    out = ops.flash_attention_op(q, k, v, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        out.sum().backward()
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    grads = torch.autograd.grad(ops.flash_attention_op(q, k, v, softcap=30.0).sum(), (q, k, v))
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = ops.plain_flash_attention_bwd(q, k, v, torch.ones_like(q), softcap=30.0)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    wide = _rand(rng, (1, 16, 1, 264), dev).requires_grad_(True)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_op(wide, wide, wide)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu_tanh"])

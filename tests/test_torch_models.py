@@ -52,12 +52,19 @@ def _port_attn_cfg(a) -> AttentionConfig:
                            window=a.window, softcap=a.softcap)
 
 
-@pytest.mark.parametrize("arch_fn", ["smoke", "full"])
-def test_config_matches_repro(arch_fn):
-    """The port's phi3-mini config equals repro's, field for field."""
+CONFIG_CASES = [pytest.param("phi3-mini-3.8b", "smoke", id="smoke"),
+                pytest.param("phi3-mini-3.8b", "full", id="full")] + [
+    pytest.param(arch, size, id=f"{arch}-{size}")
+    for arch in ("gemma-2b", "gemma2-2b", "deepseek-7b") for size in ("smoke", "full")]
+
+
+@pytest.mark.parametrize("arch,arch_fn", CONFIG_CASES)
+def test_config_matches_repro(arch, arch_fn):
+    """The port's config of each dense arch equals repro's, field for field,
+    at smoke and full size."""
     from repro.configs import get_config as jax_get_config
-    j = (jax_smoke_config if arch_fn == "smoke" else jax_get_config)("phi3-mini-3.8b")
-    t = (get_smoke_config if arch_fn == "smoke" else get_config)("phi3-mini-3.8b")
+    j = (jax_smoke_config if arch_fn == "smoke" else jax_get_config)(arch)
+    t = (get_smoke_config if arch_fn == "smoke" else get_config)(arch)
     for f in dataclasses.fields(t):
         if f.name == "attn":
             assert _port_attn_cfg(j.attn) == t.attn
@@ -71,7 +78,7 @@ def test_config_matches_repro(arch_fn):
 
 def test_unported_arch_is_refused():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("gemma-2b")
+        get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

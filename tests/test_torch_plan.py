@@ -109,7 +109,7 @@ def both(fj, ft):
 # the planning inputs: cost tables and profiles
 # ---------------------------------------------------------------------------
 
-MODELS = [*jpm.PAPER_MODELS, "phi3-mini-3.8b"]
+MODELS = [*jpm.PAPER_MODELS, "phi3-mini-3.8b", "gemma2-2b"]
 ENVS = "ABCD"
 
 
@@ -123,8 +123,10 @@ def _stand_in_cfg(mod, L):
 def tables(name):
     """(repro's table, the port's, repro's cfg, the port's cfg, global batch,
     micro-batch)."""
-    if name == "phi3-mini-3.8b":
+    if name in ("phi3-mini-3.8b", "gemma2-2b"):
         jc, tc = jget_smoke(name), get_smoke_config(name)
+        if name == "gemma2-2b":     # 2 periods of a local and a global layer
+            jc, tc = jc.replace(n_layers=4), tc.replace(n_layers=4)
         return (jpr.LayerTable.from_model_config(jc, SEQ),
                 tpr.LayerTable.from_model_config(tc, SEQ), jc, tc, 16, 4)
     jt, tt = jpm.PAPER_MODELS[name](), tpm.PAPER_MODELS[name]()
@@ -155,6 +157,7 @@ def _full_width_pairs():
         name=config_without_experts().name, n_layers=8, moe=None,
         pattern=tuple(dataclasses.replace(s, mlp="mlp") for s in j_jamba.pattern))
     return [(jget_config("phi3-mini-3.8b"), get_config("phi3-mini-3.8b")),
+            *((jget_config(a), get_config(a)) for a in ("gemma-2b", "gemma2-2b", "deepseek-7b")),
             (jget_config("rwkv6-7b"), get_config("rwkv6-7b")),
             (j_jamba, config_without_experts())]
 
