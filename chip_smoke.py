@@ -176,9 +176,15 @@ window of 4096 on every other layer):
    families' shapes against their plain versions, timed beside bound,
    plain version and SDPA ("none" under a softcap): the flash forward and
    backward (dq, dk, dv) at gemma-2b's prefill (2, 512, 8/1, 256), gemma2's
-   (2, 512, 8/4, 256, softcap 50) and its training micro-batch (1, 8192,
-   8/4, 256, window 4096, softcap 50; also against float64) and a
-   softcapped head_dim 96 (the tensor cores), within ``TOL_DENSE_ATTN``;
+   (2, 512, 8/4, 256, softcap 50), the training micro-batches of gemma-2b
+   (1, 8192, 8/1, 256) and gemma2 (1, 8192, 8/4, 256, window 4096, softcap
+   50; both also against float64; at gemma-2b's, where the plain version
+   is itself about the tolerance from float64, held to it within the
+   tolerance plus that distance) and a
+   softcapped head_dim 96 (the tensor cores), within ``TOL_DENSE_ATTN``; at
+   head_dim 256 the backward's route (the two-CTA clusters) and two runs
+   bitwise, phase 3b's one-sign case at (1, 8192, 2/1, 256), and the port's
+   forward plus backward beside SDPA's at gemma-2b's shape;
    ``flash_decode`` at gemma-2b's and gemma2's decode steps (batch 8, cache
    256, per-row lengths); ``fused_swiglu`` with ``gelu_tanh`` at gemma2's
    widths (T = 8 and 4096) and ``swiglu_bwd`` at (8192, 9216);
@@ -192,9 +198,10 @@ window of 4096 on every other layer):
 10d. serves each of gemma-2b (18 layers), gemma2-2b (26) and deepseek-7b
    (30) whole as phase 5 serves phi3: prefill 8 x 512, ``launch.serve``
    batch 8, prompt 128 + gen 128, launch counts, busy share, peak memory;
-10e. trains gemma2-2b whole through ``launch.train --stage 2 --seq 8192
-   --global-batch 2 --n-micro 2 --compress int8 --bucket-mb 256
-   --no-error-feedback``, 1 warm-up + 2 steps, every step's launch counts;
+10e. trains gemma2-2b, then gemma-2b (MQA), whole through ``launch.train
+   --stage 2 --seq 8192 --global-batch 2 --n-micro 2 --compress int8
+   --bucket-mb 256 --no-error-feedback``, 1 warm-up + 2 steps, every step's
+   launch counts, every backward on the two-CTA clusters, a traced step;
 10f. the paper's loop on gemma2-2b as 6c runs it on phi3 (``launch.profile``
    at seq 256, batches 1-8, 4 x 20 GB; ``launch.train --plan --profile``
    at 6b's batch flags, 4 steps): the split, the predicted round and the
@@ -213,7 +220,8 @@ window of 4096 on every other layer):
    planned training, staleness-1 and
    failure-recovery training, portfolio (6e (a), (b)), Jamba serving,
    rwkv6-7b serving, the three dense serving paths, gemma2-2b training and
-   planned training (10d-10f), and phase 10a's rows under ``dense``) and,
+   planned training, gemma-2b training (10d-10f), and phase 10a's rows under
+   ``dense``) and,
    last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
@@ -1999,6 +2007,9 @@ def profile_train_step(torch, ts, params, opt_state, batch):
             "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd",
             "flash_bwd_dkdv_simt_kernel": "flash_attention_bwd",
             "flash_bwd_dq_simt_kernel": "flash_attention_bwd",
+            "flash_bwd_dkdv_cluster_kernel": "flash_attention_bwd",
+            "flash_bwd_dq_cluster_kernel": "flash_attention_bwd",
+            "flash_bwd_sum_parts_kernel": "flash_attention_bwd",
             "wgmma_gemm_kernel": "fused_swiglu", "skinny_kernel": "fused_swiglu",
             "swiglu_bwd_": "swiglu_bwd", "dequantize_": "dequantize_tiles",
             "quantize_": "quantize_tiles"}
@@ -3187,12 +3198,14 @@ def phase_rwkv_serve(torch, ops, dev, card: str) -> dict:
 
 # flash attention at the dense families' shapes, fp32, causal: name -> (B,
 # S, H, Hkv, D, window, softcap): gemma-2b's prefill (MQA), gemma2's
-# (GQA 2, softcap 50), gemma2's training micro-batch at its published
-# context (the local layers' window of 4096 binds), and a softcapped
-# head_dim 96 (the tensor-core route)
+# (GQA 2, softcap 50), the training micro-batches at the published context
+# (gemma-2b's: the dK/dV pass unsplit, g = 1, so a cluster sums over 8 q
+# heads x 8192 queries; gemma2's: the local layers' window of 4096 binds),
+# and a softcapped head_dim 96 (the tensor-core route)
 DENSE_ATTN = {
     "gemma_prefill": (2, 512, 8, 1, 256, None, None),
     "gemma2_prefill": (2, 512, 8, 4, 256, None, 50.0),
+    "gemma_train": (1, 8192, 8, 1, 256, None, None),
     "gemma2_train": (1, 8192, 8, 4, 256, 4096, 50.0),
     "softcap_d96": (2, 256, 8, 2, 96, None, 50.0),
 }
@@ -3219,7 +3232,8 @@ def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
     versions on the card, timed beside their bounds, plain versions and
     library calls (SDPA has no softcap: "none" there), into each kernel's
     entry as ``dense`` rows."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_route)
     from repro_torch.kernels.fused_swiglu import swiglu_bwd
     from repro_torch.kernels.ref import naive_swiglu_act_bwd
 
@@ -3227,25 +3241,50 @@ def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
     rows = {name: [] for name in ("flash_attention", "flash_attention_bwd", "flash_decode",
                                   "fused_swiglu", "swiglu_bwd")}
 
-    def rnd(*shape, scale=0.5):
-        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+    def rnd(*shape, scale=0.5, gen=g):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
     for name, (B, S, H, Hkv, D, win, cap) in DENSE_ATTN.items():
-        q, k, v = rnd(B, S, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-        dout = rnd(B, S, H, D, scale=1.0)
+        # gemma-2b's micro-batch, the last row added, draws from its own
+        # generator: the draws of the rows and checks after it stay as they were
+        gen = torch.Generator(device=dev).manual_seed(31) if name == "gemma_train" else g
+        q, k, v = (rnd(B, S, n, D, gen=gen) for n in (H, Hkv, Hkv))
+        dout = rnd(B, S, H, D, scale=1.0, gen=gen)
         kw = dict(window=win, softcap=cap)
         what = f"({B}, {S}, {H}, {Hkv}, {D}) causal window={win} softcap={cap}"
         out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         f_err = max_err(out, ops.plain_flash_attention(q, k, v, **kw))
         check(f_err, TOL_DENSE_ATTN, f"flash_attention {name} {what}")
         got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        b_err = max(max_err(a, b) for a, b in
-                    zip(got, ops.plain_flash_attention_bwd(q, k, v, dout, **kw)))
-        check(b_err, TOL_DENSE_ATTN, f"flash_attention_bwd {name} {what} dq/dk/dv")
+        plain = ops.plain_flash_attention_bwd(q, k, v, dout, **kw)
+        b_err = max(max_err(a, b) for a, b in zip(got, plain))
+        tol = TOL_DENSE_ATTN
         if S == 8192:
-            check(max(max_err(a, b) for a, b in
-                      zip(got, attention_bwd_float64(torch, q, k, v, dout, **kw))),
+            exact = attention_bwd_float64(torch, q, k, v, dout, **kw)
+            check(max(max_err(a, b) for a, b in zip(got, exact)),
                   TOL_DENSE_ATTN, f"flash_attention_bwd {name} against float64")
+            p64 = max(max_err(a, b) for a, b in zip(plain, exact))
+            print(f"  plain flash_attention_bwd {name} against float64: max abs err {p64:.3e}")
+            if name == "gemma_train":
+                # there the plain version is itself about TOL_DENSE_ATTN from
+                # the exact answer (2.623e-05 on draws of seed 29 on an H100:
+                # dV sums 8 heads x 8192 queries in two fp32 stages), so the
+                # kernel, held to TOL_DENSE_ATTN from float64 above, is held
+                # to the plain version within TOL_DENSE_ATTN plus that distance
+                tol += p64
+            del exact
+        del plain
+        check(b_err, tol, f"flash_attention_bwd {name} {what} dq/dk/dv")
+        if D > 128:
+            # head_dim 256: the two-CTA clusters, deterministic
+            route = flash_attention_bwd_route(q, k, v, dout)
+            same = all(bitwise_equal(torch, a, b) for a, b in
+                       zip(got, flash_attention_bwd(q, k, v, out, lse, dout, **kw)))
+            print(f"  flash_attention_bwd {name}: route {route}, two runs bitwise "
+                  f"{'equal' if same else 'DIFFERENT'}")
+            if route != "tc_cluster" or not same:
+                raise AssertionError(f"flash_attention_bwd {name}: route {route}, two runs "
+                                     f"bitwise {'equal' if same else 'different'}")
         del got
         torch.cuda.empty_cache()
         f_ms = time_ms([lambda: ops.flash_attention_op(q, k, v, **kw)], torch)
@@ -3266,6 +3305,14 @@ def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
                 torch.autograd.grad(o, (qt, kt, vt), dt)
 
             b_lib = time_ms([sdpa], torch)
+
+            def port():
+                o, ls = flash_attention(q, k, v, return_lse=True)
+                flash_attention_bwd(q, k, v, o, ls, dout)
+
+            fb_ms = time_ms([port], torch)
+            print(f"  flash attention forward + backward {name}: port {fb_ms:.4f} ms, SDPA "
+                  f"{b_lib:.4f} ms")
             del qt, kt, vt, dt
         fb, fby = flash_bound(B, S, H, Hkv, D, window=win, softcap=cap)
         bb, bby = flash_bwd_bound(B, S, H, D, Hkv, win, cap)
@@ -3284,6 +3331,32 @@ def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
              "bound_ms": bb, "bound_by": bby, "library_ms": b_lib, "shape": shape})
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
+
+    # phase 3b's one-sign case at head_dim 256, MQA: 8192 causal rows, q/k
+    # in [0, 1), dO and V in [1, 1.1), on the clusters: one-sign sums over up
+    # to 128 tiles, dP and Dvec (~282 each) cancelling in dS.  Its own
+    # generator: the draws of the checks below stay as they were
+    g1 = torch.Generator(device=dev).manual_seed(30)
+    qq, kk = (torch.rand((1, 8192, n, 256), generator=g1, device=dev) for n in (2, 1))
+    vv = torch.rand((1, 8192, 1, 256), generator=g1, device=dev).mul_(0.1).add_(1.0)
+    do = torch.rand((1, 8192, 2, 256), generator=g1, device=dev).mul_(0.1).add_(1.0)
+    o, ls = flash_attention(qq, kk, vv, return_lse=True)
+    route = flash_attention_bwd_route(qq, kk, vv, do)
+    if route != "tc_cluster":
+        raise AssertionError(f"the one-sign case at head_dim 256 takes the {route} route")
+    got = flash_attention_bwd(qq, kk, vv, o, ls, do)
+    plain = ops.plain_flash_attention_bwd(qq, kk, vv, do)
+    exact = attention_bwd_float64(torch, qq, kk, vv, do)
+    what = "flash_attention_bwd long causal (1, 8192, 2/1, 256), dO and V around 1"
+    print(f"  {what}: dq/dk/dv from float64: kernel "
+          f"{' '.join(f'{max_err(x, y):.3e}' for x, y in zip(got, exact))}, plain "
+          f"{' '.join(f'{max_err(x, y):.3e}' for x, y in zip(plain, exact))}; largest |dq|/|dk|/"
+          f"|dv| {' '.join(f'{float(y.abs().max()):.3f}' for y in exact)}")
+    check(max(max_err_rel(x, y) for x, y in zip(got, plain)), TOL_FP32, what,
+          "max |err| / (1 + |plain|)")
+    check(max(max_err(x, y) for x, y in zip(got, exact)), TOL_FP32, what + ", against float64")
+    del qq, kk, vv, do, o, ls, got, plain, exact
+    torch.cuda.empty_cache()
 
     for name, (B, H, Hkv, S, D, lens) in DENSE_DECODE_SHAPES.items():
         cap = 50.0 if name == "gemma2" else None
@@ -3450,18 +3523,26 @@ def phase_window_wrap(torch, ops, dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_dense_train(torch, ops, dev, card: str) -> dict:
-    """10e: gemma2-2b whole (26 layers, published widths) through
-    ``launch.train --stage 2 --seq 8192 --global-batch 2 --n-micro 2
-    --compress int8 --bucket-mb 256 --no-error-feedback``, 1 warm-up and 2
-    timed steps: at its published context the local layers' window binds;
-    every step's launch counts held against what the path implies, and none
-    outside the steps; a profiler table of one more step."""
+# 10e's models and the uniform 2-stage split each must come out with
+DENSE_TRAIN = {"gemma2-2b": ((0, 7), (7, 13)), "gemma-2b": ((0, 9), (9, 18))}
+
+
+def phase_dense_train(torch, ops, dev, card: str, arch: str = "gemma2-2b") -> dict:
+    """10e: gemma2-2b (26 layers) or gemma-2b (18 layers, MQA) whole
+    at published widths through ``launch.train --stage 2 --seq 8192
+    --global-batch 2 --n-micro 2 --compress int8 --bucket-mb 256
+    --no-error-feedback``, 1 warm-up and 2 timed steps: at its published
+    context gemma2's local layers' window binds; every step's launch counts
+    held against what the path implies, and none outside the steps; every
+    backward on the two-CTA clusters, its dK/dV pass unsplit (g = 1 at this
+    shape on both models: the summed parts run in 10a and 10f); a profiler
+    table of one more step."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import BWD_ROUTES, reset_bwd_routes
     from repro_torch.launch import train as launcher
 
-    cfg = get_config("gemma2-2b")
+    cfg = get_config(arch)
     L, P, M, B, S, steps = cfg.n_layers, 2, 2, 2, 8192, 3
     argv = ["--arch", cfg.name, "--stage", str(P), "--n-micro", str(M), "--global-batch",
             str(B), "--seq", str(S), "--steps", str(steps), "--compress", "int8",
@@ -3477,24 +3558,30 @@ def phase_dense_train(torch, ops, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
+    reset_bwd_routes()
     res = launcher.main(argv, after_step=after_step)
     launches = dict(ops.LAUNCHES)
     ts = res["ts"]
     nb = len(ts.buckets)
-    if ts.spec.ranges != ((0, 7), (7, 13)):
-        raise AssertionError(f"the uniform split {ts.spec.ranges} is not ((0, 7), (7, 13))")
+    if ts.spec.ranges != DENSE_TRAIN[arch]:
+        raise AssertionError(f"the uniform split {ts.spec.ranges} is not {DENSE_TRAIN[arch]}")
     _check_marks(marks, launches, lambda label, extra: _train_counts(L, M, P, nb))
+    if BWD_ROUTES != {"simt": 0, "tc": 0, "tc_cluster": launches["flash_attention_bwd"]}:
+        raise AssertionError(f"{arch}'s backward routes {BWD_ROUTES}: not all on the clusters")
     losses = res["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss {losses}")
     ms_step = res["seconds"] / res["timed_steps"] * 1e3
     per = {k: v for k, v in _train_counts(L, M, P, nb).items() if v}
-    print(f"train gemma2-2b full width fp32 ({L} layers), {P} virtual stages "
-          f"{ts.spec.ranges} x {M} micro-batches, batch {B}x{S} (window {cfg.pattern[0].window} "
-          f"on the local layers), int8 wire ({nb} gradient buckets): {ms_step:.1f} ms/step "
+    win = cfg.pattern[0].window
+    print(f"train {arch} full width fp32 ({L} layers), {P} virtual stages "
+          f"{ts.spec.ranges} x {M} micro-batches, batch {B}x{S}"
+          f"{f' (window {win} on the local layers)' if win else ''}, int8 wire ({nb} gradient "
+          f"buckets): {ms_step:.1f} ms/step "
           f"over {res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; peak memory "
           f"{max(peaks) / 1e9:.3f} GB (each step {[round(x / 1e9, 3) for x in peaks]}); "
-          f"launches a step {per}; losses {[round(x, 6) for x in losses]}; card {card}")
+          f"launches a step {per}; backward routes {BWD_ROUTES}; losses "
+          f"{[round(x, 6) for x in losses]}; card {card}")
     params, opt_state = res["params"], res["opt_state"]
     del res
     batch = ts.shard_batch(SyntheticLM(cfg.vocab_size, S).batch(steps, B))
@@ -3612,6 +3699,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     print("phase 10e: train gemma2-2b whole at seq 8192, uniform split")
     dense_train = phase_dense_train(torch, ops, dev, card)
+    print("phase 10e: train gemma-2b whole at seq 8192, uniform split")
+    gemma_train = phase_dense_train(torch, ops, dev, card, arch="gemma-2b")
     dense_plan = phase_plan_train(torch, ops, dev, card, arch="gemma2-2b", label="10f")
     print("phase 9: flash attention's device times at the training shape")
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
@@ -3634,6 +3723,7 @@ def main() -> int:
                    **{f"{arch}_serve": dense_serve[arch]["launches"][e["name"]]
                       for arch in DENSE_ARCHS},
                    "gemma2_train": dense_train["launches"][e["name"]],
+                   "gemma_train": gemma_train["launches"][e["name"]],
                    "gemma2_plan_train": dense_plan["launches"][e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")

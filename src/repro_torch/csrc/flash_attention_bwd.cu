@@ -25,13 +25,14 @@
 // 0.0122 ms.
 //
 // Three launches, no atomics (two runs give the same bits): Dvec by rows,
-// then dK/dV by key tile, then dQ by query tile.  The two passes recompute
-// S and dP (14 * D flops a pair instead of 10 * D), the price of keeping
-// dQ free of atomics and of a scratch buffer for per-tile partials, which
-// the C interface has no room for.
+// then dK/dV by key tile, then dQ by query tile (a fourth, at head_dim 256,
+// sums the dK/dV pass's parts: below).  The two passes recompute S and dP
+// (14 * D flops a pair instead of 10 * D), the price of keeping dQ free of
+// atomics and of a scratch buffer for per-tile partials.
 //
-// Two routes, chosen by head_dim D and the rows' alignment (a launch that
-// fails raises; nothing gives way to another route):
+// Three routes, chosen by head_dim D and the rows' alignment (a launch that
+// fails raises; nothing gives way to another route; the C entry
+// flash_attention_bwd_route says which a call takes):
 //
 // D <= 128 with D % 8 == 0 (phi3's 96, Jamba's 128) and rows that can be
 // copied 4 elements at a time (bases and strides aligned to 4 elements):
@@ -85,6 +86,76 @@
 //     kernels are instantiated with and without it (CAP), so that the
 //     instance without a softcap is the code measured below.
 //
+// 128 < D <= 256 with D % 8 == 0 (Gemma's 256) and aligned rows: the same
+// blocks, 3xTF32 on the tensor cores, over a cluster of two CTAs that split
+// head_dim, each the DP = 128 block on 128 columns.  The DP = 128 design
+// does not fit one CTA at 256: its two resident operands, split into hi and
+// lo, would take 256 KB of the 227 KB a block may hold, and each consumer's
+// running 64 x 256 fp32 sum (128 registers a thread) with the A fragments
+// (64) and a chunk product (16) passes the ~200 registers setmaxnreg can
+// give it.  Split over two CTAs:
+//   * The products that contract over head_dim (S^T = K Q^T and dP^T = V
+//     dO^T in the dK/dV pass, S = Q K^T and dP = dO V^T in the dQ pass)
+//     are formed by each CTA over its 128 columns as a partial 64 x 64
+//     tile, pushed into the peer's shared memory (distributed shared
+//     memory, st.shared::cluster, then a release arrive on the peer's
+//     mbarrier) and added in fp32: rank 0's half plus rank 1's, the same
+//     bits in both CTAs (IEEE addition commutes), so both form the same P
+//     and dS.  The products whose output runs along head_dim (dV = P^T dO,
+//     dK = dS^T Q, dQ = dS K) are computed by each CTA on its own columns:
+//     no flop is done twice, and each consumer's running sums stay 64 x 128
+//     (ptxas shows no spills: see the measured note below).
+//   * The exchange needs two 16 KB tiles beside the DP = 128 layout, which
+//     has none to spare (its ring holds only NS = C = 4 chunks).  They come
+//     from the residents: K and V (Q and dO in the dQ pass) stay plain fp32
+//     (64 KB instead of 128 KB of hi and lo parts, rows swizzled: store_res)
+//     and are split into TF32 parts in registers at each k-step, as the A
+//     operand of wgmma's register form (ring_product_rs, wgmma_rs).  That
+//     frees room for the exchange tiles beside a ring of 4 chunks and two
+//     raw slots a stager.  (Time-sharing the P hand-over tile for the
+//     exchange was the other way: it would have chained the two consumers'
+//     exchanges.)
+//   * Long contractions: at head_dim 256 one-sign q . k reaches ~64, twice
+//     the D = 128 route's, and a partial summed in one truncating
+//     accumulator drifted (P, and dV through it, 1.43e-4 from float64 on
+//     the one-sign case of chip_smoke.py phase 10a); so ring_product_rs,
+//     like the output products, sums each 32-column chunk from zero and
+//     adds it in fp32, and the peer's half is added in fp32.
+//   * The dQ pass's consumers share dQ's product (64 columns each of the
+//     CTA's 128, dS handed back through the P tile): with one consumer
+//     doing dP's product and dQ's, it did twice the other's work.
+//   * MQA: gemma-2b's one kv head gives the dK/dV pass 8 key tiles x 1 x 2
+//     = 16 clusters (32 blocks) at its prefill, a quarter of the SMs.  The
+//     pass splits each GQA group's q heads into g parts, a cluster each,
+//     which write fp32 partials (dK already scaled) to a (2, g, B, S, Hkv,
+//     D) scratch that flash_bwd_sum_parts_kernel sums in the order p = 0,
+//     1, .. (no atomics: the same bits every run).  The caller chooses g
+//     (the Python wrapper's bwd_kv_split: the least g that gives a block an
+//     SM, g = 1 where the pass already fills the card, as at gemma2's
+//     training micro-batch) and owns the scratch.
+//   * Everything else is the DP = 128 route's: mu subtracted from V by the
+//     stagers and Dvec = rowsum(dO * (O - mu)) by the row pass (VEC 2: two
+//     4-element runs a lane), each tile's dK, dV, dQ summed from zero per
+//     32-column chunk and added in fp32, the softcap's factor handed over as
+//     P (1 - (S / c)^2), instances with and without CAP, bf16 the same
+//     passes.  A cluster launch the card refuses, or a register count other
+//     than the one setmaxnreg assumes, returns the error: nothing gives way
+//     to the SIMT kernels.
+//   Measured (chip_flash_bwd_ablation.py --against the SIMT-only source,
+//   device time, NVIDIA H100 80GB HBM3 at 700.00 W): gemma2's training
+//   micro-batch (1, 8192, 8/4, 256), window 4096, softcap 50, 15.44-15.46
+//   ms against the SIMT kernels' 61.03-61.04 (20% of its 3.12 ms bound);
+//   gemma-2b's MQA prefill (2, 512, 8/1, 256), g = 8, 0.222 against 3.09;
+//   gemma2's prefill, softcap 50, g = 2, 0.243-0.246 against 1.17.  At
+//   gemma-2b's prefill it reads 0.19 without the stagers' global loads,
+//   0.18 without the products, 0.19 without the ring stores.  Interleaving
+//   the two consumers' ring items (a stager for each) read 0.248 and 18.7
+//   ms: two stagers on one consumer's chunks stage them twice as fast.
+//   ptxas: 128 registers at launch (setmaxnreg 56 staging / 200
+//   multiplying), no spills: ring_product_rs takes 2 k-steps a batch in the
+//   dK/dV pass and 4 in the dQ pass, the choice with which ptxas spills
+//   neither.
+//
 // Other D <= 256, or unaligned rows: the SIMT kernels, a block of 256
 // threads per (key tile, kv head, batch row) and per (query tile, head,
 // batch row), R x R register tiles of S^T/dP^T and S/dP (rows ty + 16 i,
@@ -96,12 +167,8 @@
 // sums, so that their rounding grows with the tiles, not the queries (at
 // MQA a key's sums run over 8 heads of queries).  A simple kernel: its
 // products read shared memory once for each two FMAs, so it is held back
-// by shared-memory loads.  Measured (chip_smoke.py phase 10a, NVIDIA H100
-// 80GB HBM3 at 700.00 W) at gemma2's training micro-batch (1, 8192, 8/4,
-// 256), window 4096, softcap 50: 61.19 ms, 5.1% of its 3.12 ms bound and
-// slower than its plain version (56.22 ms); at gemma-2b's MQA prefill (2,
-// 512, 8/1, 256) 3.12 ms, where 32 blocks of the dK/dV pass fill a quarter
-// of the SMs.  A tensor-core route at head_dim 256 is later work.
+// by shared-memory loads.  They run only at head_dims that are not
+// multiples of 8 and on unaligned rows.
 //
 // Measured (chip_smoke.py phases 3b and 9 and chip_flash_bwd_ablation.py,
 // NVIDIA H100 80GB HBM3 at 700.00 W) at the training shape: 0.1032 ms of
@@ -147,10 +214,10 @@ __device__ __forceinline__ float probs(float qk, float lse, float scale, float s
 
 // Dvec[(b * H + h) * S + i] = sum_d dO[b, i, h, d] * (O[b, i, h, d] - mu_d): mu
 // is row 0 of V at the q head's kv head where v is given (the tensor-core
-// route, which stages V - mu: see its note; its rows are 4-element aligned,
-// so a lane reads 4 elements at once), else zero (the SIMT route).  A warp
-// a row.
-template <typename T, bool VEC>
+// routes, which stage V - mu: see their note; their rows are 4-element
+// aligned, so a lane reads 4 elements at once: VEC 1 to D <= 128, VEC 2 in
+// two runs to 256), else zero (the SIMT route, VEC 0).  A warp a row.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                const T* __restrict__ v, float* __restrict__ dvec, int B, int S, int H,
@@ -164,14 +231,25 @@ flash_bwd_row_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const T* drow = dout + b * ds.b + i * ds.s + h * ds.h;
   const T* mrow = v + b * vs.b + (h / G) * vs.h;   // used by VEC only
   float acc = 0.f;
-  if constexpr (VEC) {   // D <= 128: 4 elements a lane
-    using E = typename std::conditional<sizeof(T) == 4, float, uint16_t>::type;
+  using E = typename std::conditional<sizeof(T) == 4, float, uint16_t>::type;
+  if constexpr (VEC == 1) {   // D <= 128: 4 elements a lane
     const int d = 4 * lane;
     if (d < D) {
       const float4 o = load4(reinterpret_cast<const E*>(orow) + d, true);
       const float4 m = load4(reinterpret_cast<const E*>(mrow) + d, true);
       const float4 g = load4(reinterpret_cast<const E*>(drow) + d, true);
       acc = (o.x - m.x) * g.x + (o.y - m.y) * g.y + (o.z - m.z) * g.z + (o.w - m.w) * g.w;
+    }
+  } else if constexpr (VEC == 2) {   // D <= 256: 4 elements a lane, twice
+#pragma unroll
+    for (int run = 0; run < 2; ++run) {
+      const int d = 4 * lane + 128 * run;
+      if (d < D) {
+        const float4 o = load4(reinterpret_cast<const E*>(orow) + d, true);
+        const float4 m = load4(reinterpret_cast<const E*>(mrow) + d, true);
+        const float4 g = load4(reinterpret_cast<const E*>(drow) + d, true);
+        acc += (o.x - m.x) * g.x + (o.y - m.y) * g.y + (o.z - m.z) * g.z + (o.w - m.w) * g.w;
+      }
     }
   } else {
 #pragma unroll
@@ -527,6 +605,10 @@ struct BwdTile {
   static constexpr int MU_WORDS = RAW_WORDS + 2 * NR * kRawWords;       // where mu sits
   static constexpr int BAR_WORDS = MU_WORDS + 128;                      // where Bars sit
   static constexpr int SMEM = 4 * BAR_WORDS + 256;
+  // what stage() reads: head_dim columns, the ring's place, and the
+  // residents' form (TF32 parts in wgmma's layout)
+  static constexpr int COLS = DP, RING_WORDS = RES_WORDS + P_WORDS;
+  static constexpr bool FP32_RES = false;
 };
 
 // ---- mbarriers --------------------------------------------------------------
@@ -681,19 +763,33 @@ __device__ __forceinline__ void store_chunk(const float4 (&x)[4], uint32_t* dst,
   store_vt<kCh>(t, dst, dst + kPart);
 }
 
+// A resident chunk ch (rows as load_rows<32> hands them over, RowUnit<32>)
+// as plain fp32 into a 64 x 128 operand (BwdTileX): row n's 4-word groups
+// XOR-swizzled by n % 8, so that these 16-byte stores (8 lanes on 8 rows)
+// and the A fragments' loads of ring_product_rs (8 rows x 4 columns a warp)
+// fall on distinct banks without padding
+__device__ __forceinline__ void store_res(const float4 (&x)[4], float* res, int ch) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const RowUnit<kCh> u(it);
+    *reinterpret_cast<float4*>(res + u.n * 128 + ((8 * ch + u.c) ^ (u.n % 8)) * 4) = x[it];
+  }
+}
+
 // Staging warpgroup `which` (0 or 1): chunk items which, which + 2, ... of
 // `item`.  The first 2 C are the resident operands; item 2 C + r goes to
 // ring slot r % NS once ring item r - NS is read.  A stager's k-th item is
 // copied by cp.async into its raw slot k % NR, NR items ahead of its split,
 // so that chunks are in flight without holding registers; a slot is copied
 // into again once its chunk is in registers.  mu_src: row 0 of V at the
-// block's kv head (staged by both stagers, the same values).
-template <int DP, typename E, typename ItemFn>
+// block's kv head (staged by both stagers, the same values).  Tl: the
+// block's shared-memory layout (BwdTile<DP>, or BwdTileX, whose residents
+// stay fp32: store_res).
+template <typename Tl, typename E, typename ItemFn>
 __device__ __forceinline__ void stage(uint32_t* smem, Bars* bars, int which, int n_items,
                                       ItemFn item, const E* mu_src, int S, int D) {
-  using Tl = BwdTile<DP>;
-  constexpr int NRES = 2 * Tl::C, NS = Tl::NS, NR = Tl::NR;
-  uint32_t* ring = smem + Tl::RES_WORDS + Tl::P_WORDS;
+  constexpr int NRES = 2 * Tl::C, NS = Tl::NS, NR = Tl::NR, DP = Tl::COLS;
+  uint32_t* ring = smem + Tl::RING_WORDS;
   E* raw = reinterpret_cast<E*>(smem + Tl::RAW_WORDS + which * NR * kRawWords);
   float* mu = reinterpret_cast<float*>(smem + Tl::MU_WORDS);
   auto slot = [&](int k) { return raw + (k % NR) * kRawWords * 4 / sizeof(E); };
@@ -716,7 +812,10 @@ __device__ __forceinline__ void stage(uint32_t* smem, Bars* bars, int which, int
     cp_async_commit();
     if (c.mu_col >= 0) sub_mu(x, mu + c.mu_col);
     if (i < NRES) {
-      store_chunk(x, smem + i * kChunk, c.trans);
+      if constexpr (Tl::FP32_RES)
+        store_res(x, reinterpret_cast<float*>(smem) + (i / Tl::C) * Tl::RES_OP_WORDS, i % Tl::C);
+      else
+        store_chunk(x, smem + i * kChunk, c.trans);
       if (i >= NRES - 2) {   // this stager's last resident item
         fence_proxy_async();
         mbar_arrive(&bars->res);
@@ -795,11 +894,10 @@ __device__ __forceinline__ int take(Bars* bars, int w, int r, uint32_t& phase) {
 // C's 64 rows staged transposed in ring items first.. (one a 32-column
 // chunk); each chunk's product is summed from zero and added in fp32, since
 // the tensor core truncates its sums
-template <int DP>
+template <int DP, int NS = BwdTile<DP>::NS>
 __device__ __forceinline__ void frag_product(float (&acc)[DP / 2], uint32_t (&h)[8][4],
                                              uint32_t (&l)[8][4], const uint32_t* ring,
                                              Bars* bars, int w, int first, uint32_t& phase) {
-  constexpr int NS = BwdTile<DP>::NS;
 #pragma unroll
   for (int n = 0; n < DP / kCh; ++n) {
     const int s = take<NS>(bars, w, first + n, phase);
@@ -959,7 +1057,7 @@ flash_bwd_dkdv_wgmma_kernel(const void* __restrict__ q, const void* __restrict__
         return Chunk<E>{src + kCh * ch, is_q ? qs.s : dos.s, q0, D - kCh * ch, kind >= 2,
                         kind & 1, -1};
       };
-      stage<DP, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, D);
+      stage<Tl, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, D);
     };
     if (bf16) run(uint16_t{});
     else run(0.f);
@@ -1081,7 +1179,7 @@ flash_bwd_dq_wgmma_kernel(const void* __restrict__ q, const void* __restrict__ k
                          : Chunk<E>{kp + kCh * ch, ks.s, k0, D - kCh * ch, kind == 2, kind / 2,
                                     -1};
       };
-      stage<DP, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, D);
+      stage<Tl, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, D);
     };
     if (bf16) run(uint16_t{});
     else run(0.f);
@@ -1181,6 +1279,587 @@ int launch_wgmma(int dtype, const void* q, const void* k, const void* v, const v
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route at 128 < D <= 256 (D % 8 == 0): a cluster of two CTAs,
+// each the DP = 128 block on its half of head_dim.
+// ---------------------------------------------------------------------------
+
+// Shared memory of one CTA of the pair (128 head_dim columns): the two
+// resident operands as plain fp32, 64 x 128 each (store_res), split into
+// TF32 parts in registers where they are used (ring_product_rs); the P
+// hand-over tile; the two exchange tiles, where the peer's partial S (or
+// S^T) and dP (or dP^T) land; the ring (NS = 4); two raw slots a stager (NR
+// = 2: chunks in flight, which the ring's other two slots would not buy);
+// mu and the barriers.  Registers: 56 a stager thread, 200 a consumer
+// thread, whose running sums (64 x 128 in the dK/dV pass, 64 x 64 in the
+// dQ pass), chunk sum (32) and one chunk's A fragments (32) must fit; chosen
+// by ptxas -v: no spills.
+struct BwdTileX {
+  static constexpr int COLS = 128, C = COLS / kCh;
+  static constexpr int THREADS = 512;
+  static constexpr int LAUNCH_REGS = 128, STAGE_REGS = 56, MUL_REGS = 200;
+  static_assert(2 * STAGE_REGS + 2 * MUL_REGS <= 4 * LAUNCH_REGS,
+                "setmaxnreg would wait forever");
+  static constexpr bool FP32_RES = true;
+  static constexpr int RES_OP_WORDS = kTile * COLS, RES_WORDS = 2 * RES_OP_WORDS;
+  static constexpr int P_WORDS = kTile * kTile, X_WORDS = 2 * kTile * kTile;
+  static constexpr int NR = 2;
+  static constexpr int FIT = (232448 / 4 - RES_WORDS - P_WORDS - X_WORDS - 2 * NR * kRawWords -
+                              128 - 64) / kChunk;
+  static constexpr int NS = FIT < 6 ? FIT / 2 * 2 : 6;
+  static_assert(NS >= C, "a product's chunks must fit in the ring at once");
+  static constexpr int X_OFF = RES_WORDS + P_WORDS;                      // exchange tiles
+  static constexpr int RING_WORDS = X_OFF + X_WORDS;                     // the ring
+  static constexpr int RAW_WORDS = RING_WORDS + NS * kChunk;
+  static constexpr int MU_WORDS = RAW_WORDS + 2 * NR * kRawWords;
+  static constexpr int BAR_WORDS = MU_WORDS + 128;                      // Bars, then XBars
+  static constexpr int XBAR_WORDS = BAR_WORDS + 44;
+  static constexpr int SMEM = 4 * BAR_WORDS + 256;
+};
+static_assert(sizeof(Bars) <= 4 * 44, "XBars would overlap Bars");
+
+// The exchange's barriers, in each CTA: xfull[w] the peer's consumer w has
+// pushed its partial into exchange tile w (128 arrivals from the peer);
+// xfree[w] the peer has read this CTA's push out of its tile w.
+struct XBars {
+  uint64_t xfull[2], xfree[2];
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the shared::cluster address of `p`'s counterpart in CTA `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_peer4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a),
+               "f"(b), "f"(c), "f"(d) : "memory");
+}
+// arrive on a peer's mbarrier, releasing this thread's earlier memory
+// operations (its pushes) to the cluster
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+// wait for a phase of a local mbarrier that a peer arrives on
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAITX:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAITX;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Both CTAs' barriers, set up before the warpgroups split: the cluster
+// barrier also tells each CTA that its peer's are ready for remote arrivals
+__device__ __forceinline__ Bars* init_bars_cluster(uint32_t* smem, XBars** xb) {
+  using Tl = BwdTileX;
+  Bars* bars = reinterpret_cast<Bars*>(smem + Tl::BAR_WORDS);
+  *xb = reinterpret_cast<XBars*>(smem + Tl::XBAR_WORDS);
+  if (threadIdx.x == 0) {
+    mbar_init(&bars->res, 256);
+    mbar_init(&bars->pfull, 128);
+    mbar_init(&bars->pempty, 128);
+    for (int s = 0; s < 6; ++s) {
+      mbar_init(&bars->full[0][s], 128);
+      mbar_init(&bars->full[1][s], 128);
+      mbar_init(&bars->empty[s], 128);
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&(*xb)->xfull[w], 128);
+      mbar_init(&(*xb)->xfree[w], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+  return bars;
+}
+
+// acc (64 x 64) = A B^T on consumer warpgroup w, 3xTF32 in ss_product's
+// order (lo*hi, hi*lo, hi*hi each 8-deep step): A (64 rows x 128) the fp32
+// resident `a` (store_res's layout), split into TF32 parts in registers as
+// wgmma's A fragments, STEPS k-steps at a time into h and l (one batch of
+// wgmmas each); B (64 rows x 128) the C = 4 ring items from `first`, K-major
+// as ss_product reads them, each waited for just before its chunk and
+// released just after it.  Each 32-column chunk's product is summed from
+// zero and added in fp32: the tensor core truncates its sums, and over 256
+// columns of one-sign data (q . k ~ 64) one accumulator's drift reaches P,
+// and dV through it.  STEPS = 4 (a chunk a batch) or 2 (16 registers fewer
+// for h and l, two batches a chunk): ptxas spills neither kernel with the
+// choice each makes.
+template <int STEPS>
+__device__ __forceinline__ void ring_product_rs(float (&acc)[32], const float* a,
+                                                const uint32_t* ring, Bars* bars, int w,
+                                                int first, uint32_t& phase, uint32_t (&h)[8][4],
+                                                uint32_t (&l)[8][4]) {
+  static_assert(STEPS == 2 || STEPS == 4, "a chunk is 4 k-steps");
+  constexpr int NS = BwdTileX::NS;
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  // row g of this warp's 16 (row g + 8: 8 * 128 words on), column t
+  const float* row = a + (16 * ((threadIdx.x / 32) % 4) + g) * 128 + lane % 4;
+  // the A fragments of k-steps kk0.. kk0 + STEPS - 1 (columns 8 kk + t and
+  // 8 kk + t + 4)
+  auto frags = [&](int kk0) {
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const int kk = kk0 + u;
+      const int c0 = ((2 * kk) ^ g) * 4, c1 = ((2 * kk + 1) ^ g) * 4;
+      split(row[c0], h[u][0], l[u][0]);
+      split(row[8 * 128 + c0], h[u][1], l[u][1]);
+      split(row[c1], h[u][2], l[u][2]);
+      split(row[8 * 128 + c1], h[u][3], l[u][3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_reg(h[u][e]);
+        fence_reg(l[u][e]);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < BwdTileX::C; ++ch) {
+    if constexpr (STEPS == 4) frags(4 * ch);
+    float part[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      part[i] = 0.f;
+      fence_reg(part[i]);
+    }
+    const int s = take<NS>(bars, w, first + ch, phase);
+    const uint32_t* bc = ring + s * kChunk;
+    const uint64_t dbh = wgmma_desc(bc, 128, 1024), dbl = wgmma_desc(bc + kPart, 128, 1024);
+#pragma unroll
+    for (int hb = 0; hb < 4 / STEPS; ++hb) {
+      if constexpr (STEPS != 4) frags(4 * ch + STEPS * hb);
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < STEPS; ++u) {
+        const int st = STEPS * hb + u;
+        wgmma_rs_n64(part, l[u], dbh + 16 * st, st > 0);
+        wgmma_rs_n64(part, h[u], dbl + 16 * st, 1);
+        wgmma_rs_n64(part, h[u], dbh + 16 * st, 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      if constexpr (STEPS == 4) mbar_arrive(&bars->empty[s]);
+#pragma unroll
+      for (int u = 0; u < STEPS; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_reg(h[u][e]);
+          fence_reg(l[u][e]);
+        }
+    }
+    if constexpr (STEPS != 4) mbar_arrive(&bars->empty[s]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      fence_reg(part[i]);
+      acc[i] += part[i];
+    }
+  }
+}
+
+// Consumer warpgroup w's 64 x 64 product over head_dim, made whole: x holds
+// this CTA's partial (its 128 columns); it is pushed into the peer's
+// exchange tile w through distributed shared memory (value i of thread j at
+// float4 128 (i / 4) + j: the peer's thread j holds the same positions), the
+// peer's partial arrives in this CTA's, and x becomes their fp32 sum (IEEE
+// addition commutes, so both CTAs hold the same bits: rank 0's half plus
+// rank 1's).  Tile n's push waits until the peer has read tile n - 1's; the
+// last tile's read is not signalled (nothing waits for it), so no CTA
+// touches its peer after the peer's last wait.
+__device__ __forceinline__ void exchange(float (&x)[32], float* xt, XBars* xb, int w,
+                                         uint32_t peer, int n, bool last) {
+  const int j = threadIdx.x % 128;
+  if (n > 0) mbar_wait_cluster(&xb->xfree[w], (n - 1) & 1);
+  const uint32_t dst = peer_addr(xt, peer);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    st_peer4(dst + 16 * (128 * i + j), x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  mbar_arrive_peer(peer_addr(&xb->xfull[w], peer));
+  mbar_wait_cluster(&xb->xfull[w], n & 1);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 y = reinterpret_cast<const float4*>(xt)[128 * i + j];
+    x[4 * i] += y.x;
+    x[4 * i + 1] += y.y;
+    x[4 * i + 2] += y.z;
+    x[4 * i + 3] += y.w;
+  }
+  if (!last) mbar_arrive_peer(peer_addr(&xb->xfree[w], peer));
+}
+
+// dK and dV of one 64-key tile of one (batch row, kv head), on the head_dim
+// columns 128 rank.. of cluster CTA `rank`; the q heads of the GQA group
+// are split into g parts (one cluster each): part p sums heads p G / g ..
+// (p + 1) G / g - 1 and, where g > 1, writes fp32 partials (dK already
+// scaled) to parts[p] (dK) and parts[g + p] (dV), each (B, S, Hkv, D), for
+// flash_bwd_sum_parts_kernel.  Otherwise as flash_bwd_dkdv_wgmma_kernel:
+// consumer 0 S^T, P^T and dV; consumer 1 dP^T, dS^T and dK, each contracting
+// product exchanged with the peer.
+template <bool CAP>
+__global__ void __launch_bounds__(BwdTileX::THREADS, 1)
+flash_bwd_dkdv_cluster_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                              const void* __restrict__ v, const void* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ dvec,
+                              void* __restrict__ dk, void* __restrict__ dv,
+                              float* __restrict__ parts, int g, int B, int S, int H, int Hkv,
+                              int D, Strides qs, Strides ks, Strides vs, Strides dos,
+                              float scale, int causal, int window, float softcap, int bf16) {
+  using Tl = BwdTileX;
+  constexpr int C = Tl::C;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(bwd_smem);
+  XBars* xb;
+  Bars* bars = init_bars_cluster(smem, &xb);
+  const uint32_t rank = cluster_rank();
+  const int col0 = 128 * (int)rank, Dr = min(128, D - col0);   // this CTA's columns
+  // cluster -> (part, kv head, batch row, key tile), parts and heads
+  // fastest; causal: the first key tiles see the most queries and run first
+  int cl = blockIdx.x / 2;
+  const int part = cl % g;
+  cl /= g;
+  const int hb = cl % (Hkv * B), kt = cl / (Hkv * B);
+  const int hk = hb % Hkv, b = hb / Hkv, Gp = H / Hkv / g;
+  const int h0 = hk * (H / Hkv) + part * Gp;   // the part's first q head
+  const int k0 = kt * kTile;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S, k0 + kTile - 1 + window) : S;
+  const int nq = (q_hi - q_lo + kTile - 1) / kTile;   // query tiles a q head
+  const int n_tiles = Gp * nq, n_ring = n_tiles * 4 * C;
+
+  if (threadIdx.x < 256) {   // the stagers
+    setmaxnreg_dec<Tl::STAGE_REGS>();
+    auto run = [&](auto zero) {
+      using E = decltype(zero);
+      const E* kp = static_cast<const E*>(k) + b * ks.b + hk * ks.h + col0;
+      const E* vp = static_cast<const E*>(v) + b * vs.b + hk * vs.h + col0;
+      const E* qp = static_cast<const E*>(q) + b * qs.b + col0;
+      const E* dp = static_cast<const E*>(dout) + b * dos.b + col0;
+      auto item = [&](int i) {
+        if (i < 2 * C) {
+          const int ch = i % C;
+          return i < C ? Chunk<E>{kp + kCh * ch, ks.s, k0, Dr - kCh * ch, false, 0, -1}
+                       : Chunk<E>{vp + kCh * ch, vs.s, k0, Dr - kCh * ch, false, 1, kCh * ch};
+        }
+        // Q rows (to 0), dO rows (1), dO transposed (0), Q transposed (1)
+        const int r = i - 2 * C, tile = r / (4 * C), kind = (r / C) % 4, ch = r % C;
+        const int h = h0 + tile / nq, q0 = q_lo + (tile % nq) * kTile;
+        const bool is_q = kind == 0 || kind == 3;
+        const E* src = is_q ? qp + h * qs.h : dp + h * dos.h;
+        return Chunk<E>{src + kCh * ch, is_q ? qs.s : dos.s, q0, Dr - kCh * ch, kind >= 2,
+                        kind & 1, -1};
+      };
+      stage<Tl, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, Dr);
+    };
+    if (bf16) run(uint16_t{});
+    else run(0.f);
+    return;
+  }
+
+  setmaxnreg_inc<Tl::MUL_REGS>();
+  const int w = threadIdx.x / 128 - 2;   // consumer warpgroup
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, t = lane % 4;
+  const int kr0 = k0 + 16 * warp + lane / 4, kr1 = kr0 + 8;   // this thread's keys
+  const float* res = reinterpret_cast<const float*>(smem) + w * Tl::RES_OP_WORDS;  // K or V
+  float* pbuf = reinterpret_cast<float*>(smem + Tl::RES_WORDS);
+  float* xt = reinterpret_cast<float*>(smem + Tl::X_OFF) + w * kTile * kTile;
+  const uint32_t* ring = smem + Tl::RING_WORDS;
+  const float scale_l2e = scale * kLog2e;
+  float acc[64];       // dV (w = 0) or dK / scale (w = 1), this CTA's columns
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float x[32];         // S^T then P^T (w = 0); dP^T then dS^T (w = 1)
+  uint32_t fh[8][4], fl[8][4];
+  uint32_t phase = 0;  // this warpgroup's full-barrier phase of each ring slot
+
+  mbar_wait(&bars->res, 0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int h = h0 + tile / nq, q0 = q_lo + (tile % nq) * kTile;
+    const int first = tile * 4 * C;   // ring index of the tile's first item
+    ring_product_rs<2>(x, res, ring, bars, w, first + w * C, phase, fh, fl);
+    // this thread's 16 query columns: the logsumexp in base 2 (w = 0) or
+    // Dvec (w = 1), loaded after the product (its A fragments hold 64
+    // registers there) and in flight during the exchange
+    const float* rowv = (w == 0 ? lse : dvec) + ((long long)b * H + h) * S;
+    float rv[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qq = q0 + 8 * i + 2 * t + j;
+        rv[2 * i + j] = qq < S ? rowv[qq] * (w == 0 ? kLog2e : 1.f) : 0.f;
+      }
+    exchange(x, xt, xb, w, rank ^ 1u, tile, tile == n_tiles - 1);
+    if (CAP && w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+      softcap_p(
+          x, pbuf, bars, tile, scale, softcap,
+          [&](int i) {
+            return full || visible(q0 + 8 * (i / 4) + 2 * t + (i & 1), i % 4 < 2 ? kr0 : kr1, S,
+                                   causal, window);
+          },
+          [&](int i) { return rv[2 * (i / 4) + (i & 1)]; });
+    } else if (w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + 8 * i + 2 * t + (e & 1), kpos = e < 2 ? kr0 : kr1;
+          const bool ok = full || visible(qpos, kpos, S, causal, window);
+          x[4 * i + e] = ok ? ex2(x[4 * i + e] * scale_l2e - rv[2 * i + (e & 1)]) : 0.f;
+        }
+      put_p(pbuf, bars, x, tile);
+    } else {
+      mbar_wait(&bars->pfull, tile & 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[i] = pbuf[128 * i + threadIdx.x % 128] * (x[i] - rv[2 * (i / 4) + (i & 1)]);
+      mbar_arrive(&bars->pempty);
+    }
+    to_frags(x, fh, fl);
+    frag_product<128, Tl::NS>(acc, fh, fl, ring, bars, w, first + (2 + w) * C, phase);
+  }
+
+  const long long rstride = (long long)Hkv * D, base = (long long)b * S * rstride + hk * D + col0;
+  const float mul = w == 0 ? 1.f : scale;
+  if (g == 1) {
+    store_acc<128>(acc, w == 0 ? dv : dk, bf16, base, rstride, kr0, S, Dr, mul);
+  } else {
+    const long long n_el = (long long)B * S * rstride;
+    store_acc<128>(acc, parts + ((w == 0 ? g : 0) + part) * n_el, 0, base, rstride, kr0, S, Dr,
+                   mul);
+  }
+}
+
+// dQ of one 64-query tile of one (batch row, q head), on the head_dim
+// columns 128 rank.. of cluster CTA `rank`; as flash_bwd_dq_wgmma_kernel,
+// S and dP exchanged with the peer, except that both consumers form dQ:
+// consumer 1 writes dS over P in the hand-over tile and hands it back, and
+// each accumulates dQ += dS K on 64 of the CTA's 128 columns (K transposed,
+// chunks 0-1 to consumer 0, 2-3 to consumer 1).  There consumer 1 did both
+// dP's product and dQ's, twice consumer 0's work, and held 64 x 128 sums.
+template <bool CAP>
+__global__ void __launch_bounds__(BwdTileX::THREADS, 1)
+flash_bwd_dq_cluster_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                            const void* __restrict__ v, const void* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ dvec,
+                            void* __restrict__ dq, int B, int S, int H, int Hkv, int D,
+                            Strides qs, Strides ks, Strides vs, Strides dos, float scale,
+                            int causal, int window, float softcap, int bf16) {
+  using Tl = BwdTileX;
+  constexpr int C = Tl::C;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(bwd_smem);
+  XBars* xb;
+  Bars* bars = init_bars_cluster(smem, &xb);
+  const uint32_t rank = cluster_rank();
+  const int col0 = 128 * (int)rank, Dr = min(128, D - col0);
+  // cluster -> (query tile, head, batch row), heads fastest; causal: the
+  // longest query tiles (the most key tiles) first
+  const int nqt = (S + kTile - 1) / kTile, cl = blockIdx.x / 2;
+  const int hb = cl % (H * B), qt_rev = cl / (H * B);
+  const int h = hb % H, b = hb / H, hk = h / (H / Hkv);
+  const int q0 = (causal ? nqt - 1 - qt_rev : qt_rev) * kTile;
+  const int kv_hi = causal ? min(S, q0 + kTile) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int nt = (kv_hi - kv_lo + kTile - 1) / kTile, n_ring = nt * 3 * C;
+
+  if (threadIdx.x < 256) {   // the stagers
+    setmaxnreg_dec<Tl::STAGE_REGS>();
+    auto run = [&](auto zero) {
+      using E = decltype(zero);
+      const E* qp = static_cast<const E*>(q) + b * qs.b + h * qs.h + col0;
+      const E* dp = static_cast<const E*>(dout) + b * dos.b + h * dos.h + col0;
+      const E* kp = static_cast<const E*>(k) + b * ks.b + hk * ks.h + col0;
+      const E* vp = static_cast<const E*>(v) + b * vs.b + hk * vs.h + col0;
+      auto item = [&](int i) {
+        if (i < 2 * C) {
+          const int ch = i % C;
+          return i < C ? Chunk<E>{qp + kCh * ch, qs.s, q0, Dr - kCh * ch, false, 0, -1}
+                       : Chunk<E>{dp + kCh * ch, dos.s, q0, Dr - kCh * ch, false, 1, -1};
+        }
+        // K rows (to 0), V rows (1), K transposed (chunks 0-1 to 0, 2-3 to 1)
+        const int r = i - 2 * C, j = r / (3 * C), kind = (r / C) % 3, ch = r % C;
+        const int k0 = kv_lo + j * kTile;
+        return kind == 1   ? Chunk<E>{vp + kCh * ch, vs.s, k0, Dr - kCh * ch, false, 1, kCh * ch}
+               : kind == 0 ? Chunk<E>{kp + kCh * ch, ks.s, k0, Dr - kCh * ch, false, 0, -1}
+                           : Chunk<E>{kp + kCh * ch, ks.s, k0, Dr - kCh * ch, true, ch / 2, -1};
+      };
+      stage<Tl, E>(smem, bars, threadIdx.x / 128, 2 * C + n_ring, item, vp, S, Dr);
+    };
+    if (bf16) run(uint16_t{});
+    else run(0.f);
+    return;
+  }
+
+  setmaxnreg_inc<Tl::MUL_REGS>();
+  const int w = threadIdx.x / 128 - 2;   // consumer warpgroup
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, t = lane % 4;
+  const int qr0 = q0 + 16 * warp + lane / 4, qr1 = qr0 + 8;   // this thread's queries
+  const float* res = reinterpret_cast<const float*>(smem) + w * Tl::RES_OP_WORDS;  // Q or dO
+  float* pbuf = reinterpret_cast<float*>(smem + Tl::RES_WORDS);
+  float* xt = reinterpret_cast<float*>(smem + Tl::X_OFF) + w * kTile * kTile;
+  const uint32_t* ring = smem + Tl::RING_WORDS;
+  const float scale_l2e = scale * kLog2e;
+  const float* rowv = (w == 0 ? lse : dvec) + ((long long)b * H + h) * S;
+  const float mul = w == 0 ? kLog2e : 1.f;
+  const float rv0 = qr0 < S ? rowv[qr0] * mul : 0.f, rv1 = qr1 < S ? rowv[qr1] * mul : 0.f;
+  float acc[32];       // dQ / scale on columns 64 w.. of this CTA's
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float x[32];         // S, P, then dS (w = 0); dP then dS (w = 1)
+  uint32_t fh[8][4], fl[8][4];
+  uint32_t phase = 0;
+  // dS handed back in the hand-over tile (consumer 1 -> 0).  Consumer 0
+  // writes the next tile's P only after reading this tile's dS, which
+  // consumer 1 wrote after reading its P: so its put_p / softcap_p are
+  // called with n = 0, which skips their own wait for the tile's reader.
+  uint64_t* dsfull = &bars->pempty;
+
+  mbar_wait(&bars->res, 0);
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = kv_lo + j * kTile, first = j * 3 * C;
+    ring_product_rs<4>(x, res, ring, bars, w, first + w * C, phase, fh, fl);
+    exchange(x, xt, xb, w, rank ^ 1u, j, j == nt - 1);
+    if (w == 0) {
+      const bool full = tile_full(q0, k0, S, causal, window);
+      if constexpr (CAP) {
+        softcap_p(
+            x, pbuf, bars, 0, scale, softcap,
+            [&](int i) {
+              return full || visible(i % 4 < 2 ? qr0 : qr1, k0 + 8 * (i / 4) + 2 * t + (i & 1),
+                                     S, causal, window);
+            },
+            [&](int i) { return i % 4 < 2 ? rv0 : rv1; });
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * i + 2 * t + (e & 1), qpos = e < 2 ? qr0 : qr1;
+            const bool ok = full || visible(qpos, kpos, S, causal, window);
+            x[4 * i + e] = ok ? ex2(x[4 * i + e] * scale_l2e - (e < 2 ? rv0 : rv1)) : 0.f;
+          }
+        put_p(pbuf, bars, x, 0);
+      }
+      mbar_wait(dsfull, j & 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = pbuf[128 * i + threadIdx.x % 128];
+    } else {
+      mbar_wait(&bars->pfull, j & 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float* at = pbuf + 128 * i + threadIdx.x % 128;
+        x[i] = *at * (x[i] - (i % 4 < 2 ? rv0 : rv1));
+        *at = x[i];
+      }
+      mbar_arrive(dsfull);
+    }
+    to_frags(x, fh, fl);
+    frag_product<64, Tl::NS>(acc, fh, fl, ring, bars, w, first + 2 * C + 2 * w, phase);
+  }
+
+  const long long rstride = (long long)H * D,
+                  base = (long long)b * S * rstride + h * D + col0 + 64 * w;
+  store_acc<64>(acc, dq, bf16, base, rstride, qr0, S, Dr - 64 * w, scale);
+}
+
+// dk, dv (B, S, Hkv, D, contiguous) = the sums of the g parts' fp32
+// partials of the dK/dV pass, in the order p = 0, 1, .., g - 1: no atomics,
+// the same bits every run.  n = B S Hkv D, a multiple of 8.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_sum_parts_kernel(const float* __restrict__ parts, T* __restrict__ dk,
+                           T* __restrict__ dv, long long n, int g) {
+  const long long n4 = n / 4;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < 2 * n4;
+       i += (long long)gridDim.x * kThreads) {
+    const int which = i >= n4;   // 0: dk, 1: dv
+    const long long e = i - which * n4;
+    const float4* p = reinterpret_cast<const float4*>(parts) + (long long)which * g * n4 + e;
+    float4 s = p[0];
+    for (int j = 1; j < g; ++j) {
+      const float4 y = p[j * n4];
+      s.x += y.x;
+      s.y += y.y;
+      s.z += y.z;
+      s.w += y.w;
+    }
+    T* out = (which ? dv : dk) + 4 * e;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(out) = s;
+    } else {
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out);
+      o2[0] = __floats2bfloat162_rn(s.x, s.y);
+      o2[1] = __floats2bfloat162_rn(s.z, s.w);
+    }
+  }
+}
+
+template <bool CAP>
+int launch_cluster(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* dvec, void* dq, void* dk, void* dv,
+                   float* parts, int g, int B, int S, int H, int Hkv, int D, Strides qs,
+                   Strides ks, Strides vs, Strides dos, float scale, int causal, int window,
+                   float softcap, cudaStream_t st) {
+  using Tl = BwdTileX;
+  auto kv_kernel = flash_bwd_dkdv_cluster_kernel<CAP>;
+  auto q_kernel = flash_bwd_dq_cluster_kernel<CAP>;
+  cudaError_t err;
+  const void* kernels[2] = {reinterpret_cast<const void*>(kv_kernel),
+                            reinterpret_cast<const void*>(q_kernel)};
+  for (const void* kern : kernels) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    // the warpgroups' setmaxnreg counts assume this launch count: refuse
+    // rather than launch a block that would wait forever
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return (int)err;
+    if (attr.numRegs != Tl::LAUNCH_REGS) return (int)cudaErrorLaunchOutOfResources;
+  }
+  const int nt = (S + kTile - 1) / kTile, bf = dtype == 1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(Tl::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Tl::SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(2 * nt * Hkv * B * g, 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kv_kernel, q, k, v, dout, lse, dvec, dk, dv, parts, g, B, S, H,
+                           Hkv, D, qs, ks, vs, dos, scale, causal, window, softcap, bf);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3(2 * nt * H * B, 1, 1);
+  err = cudaLaunchKernelEx(&cfg, q_kernel, q, k, v, dout, lse, dvec, dq, B, S, H, Hkv, D, qs, ks,
+                           vs, dos, scale, causal, window, softcap, bf);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (g > 1) {
+    const long long n = (long long)B * S * Hkv * D, n4 = n / 4;
+    const long long want = (2 * n4 + kThreads - 1) / kThreads;
+    const unsigned grid = (unsigned)(want < 4096 ? want : 4096);
+    if (bf)
+      flash_bwd_sum_parts_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+          parts, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n, g);
+    else
+      flash_bwd_sum_parts_kernel<float><<<grid, kThreads, 0, st>>>(
+          parts, static_cast<float*>(dk), static_cast<float*>(dv), n, g);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NDK, int R>
 int launch_simt(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                 const float* dvec, void* dq, void* dk, void* dv, int B, int S, int H, int Hkv,
@@ -1228,18 +1907,36 @@ int dispatch_simt(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dvec = rowsum(dO * O) into the (B, H, S) scratch, for either route
+// Dvec = rowsum(dO * O) into the (B, H, S) scratch, for any route (rowsum(dO
+// * (O - mu)) on the tensor-core routes)
 template <typename T>
-int launch_row_dot(bool tc, const void* out, const void* dout, const void* v, float* dvec, int B,
-                   int S, int H, int Hkv, int D, Strides dos, Strides vs, cudaStream_t st) {
+int launch_row_dot(int route, const void* out, const void* dout, const void* v, float* dvec,
+                   int B, int S, int H, int Hkv, int D, Strides dos, Strides vs,
+                   cudaStream_t st) {
   const Strides os{(long long)S * H * D, (long long)H * D, D};   // out is contiguous
   const long long rows = (long long)B * H * S;
   const unsigned grid = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  auto kernel = tc ? flash_bwd_row_dot_kernel<T, true> : flash_bwd_row_dot_kernel<T, false>;
+  auto kernel = route == 2   ? flash_bwd_row_dot_kernel<T, 2>
+                : route == 1 ? flash_bwd_row_dot_kernel<T, 1>
+                             : flash_bwd_row_dot_kernel<T, 0>;
   kernel<<<grid, kThreads, 0, st>>>(static_cast<const T*>(out), static_cast<const T*>(dout),
                                     static_cast<const T*>(v), dvec, B, S, H, H / Hkv, D, os, dos,
                                     vs);
   return (int)cudaGetLastError();
+}
+
+// The route of a call: 0 the SIMT kernels, 1 the tensor cores at D <= 128,
+// 2 the two-CTA clusters at 128 < D <= 256.  The tensor cores take head_dim
+// a multiple of 8 and rows they can copy 4 elements at a time (16-byte fp32
+// or 8-byte bf16 runs: 4-element aligned bases and strides).
+int bwd_route(int dtype, const void* q, const void* k, const void* v, const void* dout, int D,
+              const Strides& qs, const Strides& ks, const Strides& vs, const Strides& dos) {
+  auto al = [&](const void* p, const Strides& s) {
+    return reinterpret_cast<uintptr_t>(p) % (dtype == 1 ? 8 : 16) == 0 && s.b % 4 == 0 &&
+           s.s % 4 == 0 && s.h % 4 == 0;
+  };
+  if (D % 8 || D > 256 || !(al(q, qs) && al(k, ks) && al(v, vs) && al(dout, dos))) return 0;
+  return D <= 128 ? 1 : 2;
 }
 
 }  // namespace
@@ -1251,11 +1948,14 @@ extern "C" {
 // forward's (B, S, H, D) output, contiguous; lse: its (B, H, S) float32
 // logsumexp; dvec: (B, H, S) float32 scratch.  dq: (B, S, H, D) and dk/dv:
 // (B, S, Hkv, D) contiguous outputs.  window <= 0: no window; softcap <= 0:
-// none (as the forward was called).  D <= 256.
+// none (as the forward was called).  D <= 256.  parts, g: the dK/dV pass's
+// split of each GQA group's q heads on the route at 128 < D <= 256 (g
+// divides H / Hkv; where g > 1, parts is (2, g, B, S, Hkv, D) float32
+// scratch); the other routes ignore them.
 int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
-                        void* dvec, void* dq, void* dk, void* dv, int B, int S,
-                        int H, int Hkv, int D, const long long* qs,
+                        void* dvec, void* dq, void* dk, void* dv, void* parts, int g,
+                        int B, int S, int H, int Hkv, int D, const long long* qs,
                         const long long* ks, const long long* vs,
                         const long long* dos, float scale, int causal,
                         int window, float softcap, void* stream) {
@@ -1266,19 +1966,22 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
       d3{dos[0], dos[1], dos[2]};
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(dvec);
-  // the tensor-core route: head_dim a multiple of 8, and rows it can copy
-  // 4 elements at a time (16-byte fp32 or 8-byte bf16 runs: 4-element
-  // aligned bases and strides)
-  auto al = [&](const void* p, const Strides& s) {
-    return reinterpret_cast<uintptr_t>(p) % (dtype == 1 ? 8 : 16) == 0 && s.b % 4 == 0 &&
-           s.s % 4 == 0 && s.h % 4 == 0;
-  };
-  const bool tc = D % 8 == 0 && D <= 128 && al(q, q3) && al(k, k3) && al(v, v3) && al(dout, d3);
-  int err = dtype == 0 ? launch_row_dot<float>(tc, out, dout, v, df, B, S, H, Hkv, D, d3, v3, st)
-                       : launch_row_dot<__nv_bfloat16>(tc, out, dout, v, df, B, S, H, Hkv, D, d3,
-                                                       v3, st);
+  const int route = bwd_route(dtype, q, k, v, dout, D, q3, k3, v3, d3);
+  if (route == 2 && (g < 1 || (H / Hkv) % g || (g > 1 && parts == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  int err = dtype == 0
+                ? launch_row_dot<float>(route, out, dout, v, df, B, S, H, Hkv, D, d3, v3, st)
+                : launch_row_dot<__nv_bfloat16>(route, out, dout, v, df, B, S, H, Hkv, D, d3,
+                                                v3, st);
   if (err != 0) return err;
-  if (tc) {
+  if (route == 2) {
+    auto go = [&](auto launch) {
+      return launch(dtype, q, k, v, dout, lf, df, dq, dk, dv, static_cast<float*>(parts), g, B,
+                    S, H, Hkv, D, q3, k3, v3, d3, scale, causal, window, softcap, st);
+    };
+    return softcap > 0.f ? go(launch_cluster<true>) : go(launch_cluster<false>);
+  }
+  if (route == 1) {
     // the tensor-core route, one instance per head_dim padded to DP, with
     // and without a softcap
     auto go = [&](auto launch_dp) {
@@ -1296,6 +1999,16 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                 d3, scale, causal, window, softcap, st);
   return dispatch_simt<__nv_bfloat16>(q, k, v, dout, lf, df, dq, dk, dv, B, S, H, Hkv, D, q3, k3,
                                       v3, d3, scale, causal, window, softcap, st);
+}
+
+// The route flash_attention_bwd takes for these operands (bwd_route): 0
+// SIMT, 1 tensor cores (D <= 128), 2 two-CTA clusters (128 < D <= 256)
+int flash_attention_bwd_route(int dtype, const void* q, const void* k, const void* v,
+                              const void* dout, int D, const long long* qs, const long long* ks,
+                              const long long* vs, const long long* dos) {
+  return bwd_route(dtype, q, k, v, dout, D, Strides{qs[0], qs[1], qs[2]},
+                   Strides{ks[0], ks[1], ks[2]}, Strides{vs[0], vs[1], vs[2]},
+                   Strides{dos[0], dos[1], dos[2]});
 }
 
 const char* flash_attention_bwd_error_string(int err) {

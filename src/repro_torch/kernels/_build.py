@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {
     "decode_attention": ("decode_attention",),
     "flash_attention": ("flash_attention",),
-    "flash_attention_bwd": ("flash_attention_bwd",),
+    "flash_attention_bwd": ("flash_attention_bwd", "flash_attention_bwd_route"),
     "fused_swiglu": ("fused_swiglu",),
     "fused_swiglu_bwd": ("swiglu_bwd",),
     "mamba_scan": ("mamba_scan",),
@@ -53,9 +53,10 @@ ARGTYPES = {
                          _L3, _L3, _F, _I, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _L3, _L3, _L3, _F, _I, _I, _F, _P],
-    "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _L3, _L3, _L3, _L3,
                             _F, _I, _I, _F, _P],
+    "flash_attention_bwd_route": [_I, _P, _P, _P, _P, _I, _L3, _L3, _L3, _L3],
     "fused_swiglu": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swiglu_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _P],
     "mamba_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

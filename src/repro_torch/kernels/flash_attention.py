@@ -53,14 +53,75 @@ def flash_attention(q, k, v, *, scale: float | None = None, causal: bool = True,
     return (out, lse) if return_lse else out
 
 
+#: the backward's routes (``csrc/flash_attention_bwd.cu``), by the code its
+#: C entry ``flash_attention_bwd_route`` returns
+BWD_ROUTE_NAMES = ("simt", "tc", "tc_cluster")
+#: calls of :func:`flash_attention_bwd` by route since the last
+#: :func:`reset_bwd_routes` (kept apart from ``_build.LAUNCHES``, which counts
+#: one launch a call whatever its route)
+BWD_ROUTES = dict.fromkeys(BWD_ROUTE_NAMES, 0)
+
+
+def reset_bwd_routes() -> None:
+    for name in BWD_ROUTES:
+        BWD_ROUTES[name] = 0
+
+
+def bwd_kv_split(B: int, S: int, H: int, Hkv: int, n_sm: int) -> int:
+    """g: the parts into which the head_dim-256 route's dK/dV pass splits
+    each GQA group's H // Hkv q heads, one two-CTA cluster a part.  The
+    least divisor g of the group for which the pass's 2·ceil(S/64)·Hkv·B·g
+    blocks reach ``n_sm`` (a block an SM), else the whole group; 1 where
+    the pass fills the card already (gemma2's training micro-batch: 512
+    clusters)."""
+    G = H // Hkv
+    blocks = 2 * -(-S // 64) * Hkv * B
+    for g in range(1, G + 1):
+        if G % g == 0 and blocks * g >= n_sm:
+            return g
+    return G
+
+
+def bwd_parts(B: int, S: int, H: int, Hkv: int, D: int, route: str, n_sm: int, device):
+    """(g, scratch) as :func:`flash_attention_bwd` passes them to its
+    kernel: :func:`bwd_kv_split`'s g on the ``tc_cluster`` route (1 on the
+    others, which ignore it), and at g > 1 an uninitialised float32 scratch
+    for the dK/dV parts, (2, g, B, S, Hkv, D) flat, on ``device`` (else
+    None)."""
+    g = bwd_kv_split(B, S, H, Hkv, n_sm) if route == "tc_cluster" else 1
+    if g == 1:
+        return 1, None
+    return g, torch.empty(2 * g * B * S * Hkv * D, dtype=torch.float32, device=device)
+
+
+def flash_attention_bwd_route(q, k, v, dout) -> str:
+    """The route :func:`flash_attention_bwd` takes for these operands, as
+    the C side decides it: ``"tc"`` (the tensor cores, head_dim <= 128),
+    ``"tc_cluster"`` (two-CTA clusters, 128 < head_dim <= 256), both for
+    head_dims that are multiples of 8 and 4-element aligned rows, else
+    ``"simt"``.  CUDA tensors only."""
+    code = _check("flash_attention_bwd_route", q, k, v)
+    _build.dtype_code("flash_attention_bwd_route", q, dout)
+    lib = _build.load("flash_attention_bwd")
+    r = lib.flash_attention_bwd_route(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), q.shape[3],
+        _build.strides3(q), _build.strides3(k), _build.strides3(v), _build.strides3(dout))
+    return BWD_ROUTE_NAMES[r]
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float | None = None,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None):
     """(dq, dk, dv) of :func:`flash_attention` for the cotangent ``dout``,
     from the forward's ``out`` and ``lse`` (the forward called with the same
     ``scale``, ``causal``, ``window`` and ``softcap``).  dk/dv are summed
-    over the q heads of each GQA group.  CUDA tensors only; head_dim <= 256
-    (the tensor cores to 128, the SIMT kernels above)."""
+    over the q heads of each GQA group.  CUDA tensors only; head_dim <= 256:
+    the tensor cores to 128, two-CTA clusters on them above (each CTA on
+    half of head_dim; the dK/dV pass split over :func:`bwd_kv_split`'s parts
+    of the GQA group, their fp32 partials summed in order from the scratch
+    :func:`bwd_parts` allocates), at head_dims that are multiples of 8 and
+    aligned rows; the SIMT kernels otherwise
+    (:func:`flash_attention_bwd_route`)."""
     code = _check("flash_attention_bwd", q, k, v)
     _build.dtype_code("flash_attention_bwd", q, out, dout)
     B, S, H, D = q.shape
@@ -76,12 +137,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float | None = None,
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
+    route = flash_attention_bwd_route(q, k, v, dout)
+    g, parts = bwd_parts(B, S, H, Hkv, D, route,
+                         torch.cuda.get_device_properties(q.device).multi_processor_count,
+                         q.device)
+    BWD_ROUTES[route] += 1
     _build.LAUNCHES["flash_attention_bwd"] += 1
     with torch.cuda.device(q.device):
         _build.launch(
             "flash_attention_bwd", code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, D,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if parts is None else parts.data_ptr(), g, B, S, H, Hkv, D,
             _build.strides3(q), _build.strides3(k), _build.strides3(v),
             _build.strides3(dout), D ** -0.5 if scale is None else scale,
             int(causal), -1 if window is None else int(window),

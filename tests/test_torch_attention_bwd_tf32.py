@@ -17,7 +17,14 @@ and Jamba's head dims) that:
 - one pass on any one product alone misses it too, the dS side included:
   dP (whose error dS passes on to dK and dQ through the cancelling dP −
   Dvec), and the split of dS in dK and dQ;
-- three passes on all five meet it with a margin of 100.
+- three passes on all five meet it with a margin of 100;
+- at Gemma's head_dim 256, the route that splits head_dim over a cluster of
+  two CTAs (each contracting product, S and dP, formed as two 128-column
+  3xTF32 halves added in fp32) meets it with the same margin.
+
+``bwd_kv_split``, the wrapper's choice of the MQA split of that route's
+dK/dV pass, and the scratch it allocates for the parts, are checked here
+too.
 
 The kernel's other inputs are the forward's fp32 outputs (O and the
 logsumexp) and Dvec = rowsum(dO ∘ O) summed in fp32; the emulation rounds
@@ -33,14 +40,20 @@ import torch
 
 from test_torch_attention_tf32 import TOL_FP32, tf32_matmul
 
+from repro_torch.kernels.flash_attention import bwd_kv_split, bwd_parts
+
 PRODUCTS = ("s", "dp", "dv", "dk", "dq")
-WIDTHS = {"phi3": (4, 256, 96), "jamba": (4, 256, 128)}   # (heads, S, head_dim)
+WIDTHS = {"phi3": (4, 256, 96), "jamba": (4, 256, 128),
+          "gemma": (4, 256, 256)}   # (heads, S, head_dim)
 
 
-def attention_grads(q, k, v, do, passes=None):
+def attention_grads(q, k, v, do, passes=None, split=None):
     """(dq, dk, dv) of causal attention over (H, S, D) inputs.  passes None:
     float64 throughout.  Else passes[name] TF32 passes (1 or 3) on each of
-    the five products, with the kernel's fp32 roundings."""
+    the five products, with the kernel's fp32 roundings.  split: the
+    contracting products S and dP formed as two halves of head_dim (columns
+    :split and split:), each rounded to fp32 as a CTA's accumulator holds
+    it, then added in fp32, as the two-CTA cluster route forms them."""
     S, D = q.shape[1], q.shape[2]
     scale = D ** -0.5
     keep = torch.ones(S, S, dtype=torch.bool).tril()
@@ -57,6 +70,10 @@ def attention_grads(q, k, v, do, passes=None):
     dvec = (do.double() * o.double()).sum(-1).float()
 
     def mm(name, a, b):
+        if split is not None and name in ("s", "dp"):
+            halves = (tf32_matmul(a[..., :split], b[..., :split, :], passes[name]),
+                      tf32_matmul(a[..., split:], b[..., split:, :], passes[name]))
+            return (halves[0].float() + halves[1].float()).double()
         return tf32_matmul(a, b, passes[name])
 
     s = mm("s", q, k.transpose(1, 2)) * scale
@@ -101,6 +118,38 @@ def test_one_pass_on_any_product_misses(width, one_pass):
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_three_passes_on_all_products_meet_the_tolerance(width):
     assert _err(width, (), seed=3) <= TOL_FP32 / 100
+
+
+def test_cluster_halves_meet_the_tolerance():
+    """Head_dim 256 over a cluster of two CTAs: S and dP from two 128-column
+    halves, three passes each, added in fp32; the other products in three
+    passes on the CTAs' own columns (the same arithmetic as one CTA)."""
+    args = _inputs(*WIDTHS["gemma"], seed=5)
+    got = attention_grads(*args, passes=dict.fromkeys(PRODUCTS, 3), split=128)
+    ref = attention_grads(*args)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, ref)) <= TOL_FP32 / 100
+
+
+def test_kv_split_and_its_scratch():
+    """The dK/dV pass's split of the GQA group at head_dim 256: a block an
+    SM or more at gemma-2b's MQA prefill (2, 512, 8/1) on an H100's 132 SMs,
+    g = 1 at gemma2's training micro-batch (1, 8192, 8/4: 512 clusters), g
+    dividing the group, and the scratch the wrapper allocates holding the
+    (2, g, B, S, Hkv, D) float32 parts (none at g = 1, or off the route)."""
+    n_sm = 132
+    for B, S, H, Hkv in ((2, 512, 8, 1), (2, 512, 8, 4), (1, 100, 4, 1), (1, 8192, 8, 1)):
+        g = bwd_kv_split(B, S, H, Hkv, n_sm)
+        blocks = 2 * -(-S // 64) * Hkv * B
+        assert (H // Hkv) % g == 0
+        assert blocks * g >= n_sm or g == H // Hkv
+        assert all(blocks * d < n_sm for d in range(1, g) if (H // Hkv) % d == 0)   # the least
+    assert bwd_kv_split(2, 512, 8, 1, n_sm) == 8
+    assert bwd_kv_split(1, 8192, 8, 4, n_sm) == 1
+    g, parts = bwd_parts(2, 512, 8, 1, 256, "tc_cluster", n_sm, "cpu")
+    assert g == 8 and parts.dtype == torch.float32
+    assert parts.numel() == 2 * g * 2 * 512 * 1 * 256
+    assert bwd_parts(1, 8192, 8, 4, 256, "tc_cluster", n_sm, "cpu") == (1, None)
+    assert bwd_parts(2, 512, 8, 1, 128, "tc", n_sm, "cpu") == (1, None)
 
 
 def test_float64_reference_is_autograd():

@@ -240,7 +240,8 @@ def test_swiglu_kernel_deterministic(dev, T):
 
 from repro_torch.kernels import quant_transfer as qt  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BWD_ROUTES, flash_attention, flash_attention_bwd, flash_attention_bwd_route)
 from repro_torch.kernels.fused_swiglu import swiglu_bwd  # noqa: E402
 
 
@@ -297,8 +298,9 @@ def test_roundtrip_ef_card_equals_cpu(dev, fmt):
 
 BWD_CASES = [
     # (B, S, H, Hkv, D, window, softcap, causal, dtype); head_dim <= 128 and
-    # a multiple of 8 takes the tensor-core route, other head_dims the SIMT
-    # one (64-row tiles to 128, 32-row tiles above)
+    # a multiple of 8 takes the tensor-core route, 128 < head_dim <= 256 and
+    # a multiple of 8 the two-CTA clusters on the tensor cores, other
+    # head_dims the SIMT one (64-row tiles to 128, 32-row tiles above)
     (2, 256, 32, 32, 96, None, None, True, torch.float32),     # the slice's training shape
     (2, 192, 8, 2, 64, None, None, True, torch.float32),       # GQA, ragged S
     (1, 256, 4, 1, 128, 64, None, True, torch.float32),        # MQA + window
@@ -323,7 +325,18 @@ BWD_CASES = [
     (2, 130, 8, 2, 96, None, 50.0, True, torch.float32),       # softcap on the tensor cores
     (1, 190, 4, 4, 64, 70, 30.0, True, torch.float32),         # softcap + window there
     (1, 150, 4, 2, 100, None, 50.0, True, torch.float32),      # softcap on the 64-row SIMT
+    (1, 100, 2, 2, 256, None, None, True, torch.float32),      # clusters: S not a multiple of 64
+    (1, 128, 4, 1, 256, None, None, True, torch.float32),      # MQA, dK/dV split g = 4
+    (1, 300, 4, 2, 256, 100, 50.0, True, torch.float32),       # window + softcap, ragged
+    (2, 130, 8, 1, 256, None, 30.0, True, torch.bfloat16),     # bf16 on the clusters, g > 1
+    (1, 150, 4, 2, 136, None, None, True, torch.float32),      # rank 1 holds 8 columns
+    (1, 120, 4, 4, 192, 50, None, False, torch.float32),       # head_dim 192, non-causal window
+    (1, 150, 4, 2, 252, None, None, True, torch.float32),      # head_dim 252: the SIMT route
 ]
+
+
+def _bwd_route_of(D):
+    return "simt" if D % 8 else "tc" if D <= 128 else "tc_cluster"
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
@@ -335,10 +348,14 @@ def test_flash_bwd_kernel_matches_plain(dev, case):
     v = _rand(rng, (B, S, Hkv, D), dev, dtype).requires_grad_(True)
     dout = _rand(rng, (B, S, H, D), dev, dtype, scale=1.0)
     kw = dict(causal=causal, window=win, softcap=cap)
-    before = ops.LAUNCHES["flash_attention_bwd"]
+    route = _bwd_route_of(D)
+    assert flash_attention_bwd_route(q, k, v, dout) == route
+    before, routes = ops.LAUNCHES["flash_attention_bwd"], dict(BWD_ROUTES)
     out = ops.flash_attention_op(q, k, v, **kw)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    assert {n: BWD_ROUTES[n] - routes[n] for n in routes} == {
+        n: int(n == route) for n in routes}
     ref_grads = ops.plain_flash_attention_bwd(q, k, v, dout, **kw)
     torch.cuda.synchronize()
     tol = _tol(dtype)
@@ -347,18 +364,19 @@ def test_flash_bwd_kernel_matches_plain(dev, case):
                                    msg=lambda m, n=name: f"d{n}: {m}")
 
 
-def test_flash_bwd_kernel_unaligned_rows(dev):
+def test_flash_bwd_kernel_unaligned_rows(dev, D=64):
     """q/k/v/dO as views whose rows are not 4-element aligned (a stride of D
-    + 1): the tensor-core route copies rows 4 elements at a time, so these
+    + 1): the tensor-core routes copy rows 4 elements at a time, so these
     take the SIMT kernels, and agree with the plain version all the same."""
     rng = np.random.default_rng(24)
-    B, S, H, Hkv, D = 2, 150, 4, 2, 64
+    B, S, H, Hkv = 2, 150, 4, 2
 
     def view(heads, scale=0.5):
         return _rand(rng, (B, S, heads, D + 1), dev, scale=scale)[..., 1:]
 
     q, k, v = view(H), view(Hkv), view(Hkv)
     dout = view(H, scale=1.0)
+    assert flash_attention_bwd_route(q, k, v, dout) == "simt"
     out, lse = flash_attention(q, k, v, return_lse=True)
     got = flash_attention_bwd(q, k, v, out, lse, dout)
     want = ops.plain_flash_attention_bwd(q, k, v, dout)
@@ -368,15 +386,28 @@ def test_flash_bwd_kernel_unaligned_rows(dev):
                                    msg=lambda m, n=name: f"d{n}: {m}")
 
 
-def test_flash_bwd_kernel_deterministic(dev):
+def test_flash_bwd_kernel_unaligned_rows_head_dim_256(dev):
+    """The same at head_dim 256: unaligned rows leave the clusters for the
+    SIMT kernels."""
+    test_flash_bwd_kernel_unaligned_rows(dev, D=256)
+
+
+def test_flash_bwd_kernel_deterministic(dev, shape=(2, 256, 32, 32, 96)):
     """No atomics: two backward runs on the same inputs give the same bits."""
+    B, S, H, Hkv, D = shape
     rng = np.random.default_rng(22)
-    q, k, v = (_rand(rng, (2, 256, 32, 96), dev) for _ in range(3))
-    dout = _rand(rng, (2, 256, 32, 96), dev, scale=1.0)
+    q, k, v = (_rand(rng, (B, S, n, D), dev) for n in (H, Hkv, Hkv))
+    dout = _rand(rng, (B, S, H, D), dev, scale=1.0)
     out, lse = flash_attention(q, k, v, return_lse=True)
     a, b = (flash_attention_bwd(q, k, v, out, lse, dout) for _ in range(2))
     for x, y in zip(a, b):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_flash_bwd_kernel_deterministic_mqa_256(dev):
+    """The same at gemma-2b's MQA prefill on the clusters, where the dK/dV
+    pass's parts (g = 8 on 132 SMs) are summed in order."""
+    test_flash_bwd_kernel_deterministic(dev, shape=(2, 512, 8, 1, 256))
 
 
 def test_flash_bwd_kernel_long_one_sign(dev):
