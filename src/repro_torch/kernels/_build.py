@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: source file -> its C entry points
 SOURCES = {
     "decode_attention": ("decode_attention",),
-    "flash_attention": ("flash_attention",),
+    "flash_attention": ("flash_attention", "flash_attention_route"),
     "flash_attention_bwd": ("flash_attention_bwd", "flash_attention_bwd_route"),
     "fused_swiglu": ("fused_swiglu",),
     "fused_swiglu_bwd": ("swiglu_bwd",),
@@ -53,6 +53,7 @@ ARGTYPES = {
                          _L3, _L3, _F, _I, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _L3, _L3, _L3, _F, _I, _I, _F, _P],
+    "flash_attention_route": [_I],
     "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _L3, _L3, _L3, _L3,
                             _F, _I, _I, _F, _P],

@@ -11,6 +11,8 @@ logsumexp, and the backward recomputes the probabilities from it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -28,18 +30,54 @@ def _check(name, q, k, v):
     return code
 
 
+#: the kernels' routes, by the code their C entries ``flash_attention_route``
+#: and ``flash_attention_bwd_route`` return: SIMT, the tensor cores at
+#: head_dim <= 128, two-CTA clusters on them at 128 < head_dim <= 256
+ROUTE_NAMES = ("simt", "tc", "tc_cluster")
+#: calls of :func:`flash_attention` by route since the last
+#: :func:`reset_fwd_routes` (kept apart from ``_build.LAUNCHES``, which counts
+#: one launch a call whatever its route)
+FWD_ROUTES = dict.fromkeys(ROUTE_NAMES, 0)
+
+
+def reset_fwd_routes() -> None:
+    for name in FWD_ROUTES:
+        FWD_ROUTES[name] = 0
+
+
+def flash_attention_fwd_route(q, k, v) -> str:
+    """The route :func:`flash_attention` takes for these operands, as the C
+    side decides it (by head_dim alone: the tensor-core routes read rows of
+    any alignment): ``"tc"`` (the tensor cores, head_dim <= 128),
+    ``"tc_cluster"`` (two-CTA clusters splitting head_dim, 128 < head_dim <=
+    256), both for head_dims that are multiples of 8, else ``"simt"``.  CUDA
+    tensors only."""
+    _check("flash_attention_fwd_route", q, k, v)
+    return _fwd_route(q.shape[3])
+
+
+@functools.cache
+def _fwd_route(D: int) -> str:
+    """The forward's route at head_dim D, asked of the library once a D:
+    it depends on D alone."""
+    return ROUTE_NAMES[_build.load("flash_attention").flash_attention_route(D)]
+
+
 def flash_attention(q, k, v, *, scale: float | None = None, causal: bool = True,
                     window: int | None = None, softcap: float | None = None,
                     return_lse: bool = False):
     """q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D) contiguous
     (and, with ``return_lse``, the (B, H, S) float32 logsumexp of each row's
     scaled scores).  q head h reads kv head h // (H // Hkv).  CUDA tensors
-    only."""
+    only; head_dim <= 256: the tensor cores to 128, two-CTA clusters on them
+    above (each CTA on half of head_dim), at head_dims that are multiples of
+    8; the SIMT kernel otherwise (:func:`flash_attention_fwd_route`)."""
     code = _check("flash_attention", q, k, v)
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    FWD_ROUTES[_fwd_route(D)] += 1
     _build.LAUNCHES["flash_attention"] += 1
     with torch.cuda.device(q.device):
         _build.launch(
@@ -53,13 +91,9 @@ def flash_attention(q, k, v, *, scale: float | None = None, causal: bool = True,
     return (out, lse) if return_lse else out
 
 
-#: the backward's routes (``csrc/flash_attention_bwd.cu``), by the code its
-#: C entry ``flash_attention_bwd_route`` returns
-BWD_ROUTE_NAMES = ("simt", "tc", "tc_cluster")
 #: calls of :func:`flash_attention_bwd` by route since the last
-#: :func:`reset_bwd_routes` (kept apart from ``_build.LAUNCHES``, which counts
-#: one launch a call whatever its route)
-BWD_ROUTES = dict.fromkeys(BWD_ROUTE_NAMES, 0)
+#: :func:`reset_bwd_routes`, as :data:`FWD_ROUTES`
+BWD_ROUTES = dict.fromkeys(ROUTE_NAMES, 0)
 
 
 def reset_bwd_routes() -> None:
@@ -106,7 +140,7 @@ def flash_attention_bwd_route(q, k, v, dout) -> str:
     r = lib.flash_attention_bwd_route(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), q.shape[3],
         _build.strides3(q), _build.strides3(k), _build.strides3(v), _build.strides3(dout))
-    return BWD_ROUTE_NAMES[r]
+    return ROUTE_NAMES[r]
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float | None = None,

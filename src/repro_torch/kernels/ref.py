@@ -198,11 +198,13 @@ def naive_swiglu_bwd(x, wg, wu, wd, dout, act: str = "silu"):
 
 
 def naive_swiglu_act_bwd(g, u, dh, act: str = "silu"):
-    """The elementwise part of the SwiGLU backward, in float32: from the
+    """The elementwise part of the SwiGLU backward, in float32 (or, given
+    float64, in float64: a reference to the float32 versions): from the
     gate and up products g = x·Wg, u = x·Wu and the hidden cotangent dh,
     returns (dg, du, h) with h = act(g)·u, du = dh·act(g) and
     dg = dh·u·act'(g)."""
-    g, u, dh = g.float(), u.float(), dh.float()
+    if g.dtype != torch.float64:
+        g, u, dh = g.float(), u.float(), dh.float()
     if act == "silu":
         s = torch.sigmoid(g)
         a = g * s

@@ -18,7 +18,11 @@ draws them) that:
 - three passes on both meet it with a margin of 100;
 - a row of 16384 keys with one-sign values around 1 holds with three
   passes (one pass holds there too: over that many keys the operands'
-  rounding errors average out).
+  rounding errors average out);
+- at Gemma's head_dim 256, the route that splits head_dim over a cluster of
+  two CTAs (S formed as two 128-column partials, each summed in fp32 from
+  32-column chunks, added in fp32; P V on each CTA's columns) meets it with
+  the same margin of 100.
 
 The tensor core also truncates its fp32 sums, which this emulation does not
 model; the kernel sums each key tile's P V from zero and adds it to the
@@ -53,15 +57,32 @@ def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return out
 
 
-def attention(q, k, v, qk_passes, pv_passes, scale=None, causal=True):
+def chunk_sum(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b over the contraction in 32-wide chunks, each chunk's product
+    (``tf32_matmul``) rounded to fp32 and summed in fp32, as a kernel sums
+    a partial product chunk by chunk from zero."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for c in range(0, a.shape[-1], 32):
+        acc = acc + tf32_matmul(a[..., c:c + 32], b[..., c:c + 32, :], passes).float()
+    return acc
+
+
+def attention(q, k, v, qk_passes, pv_passes, scale=None, causal=True, split=None):
     """Attention of (H, Sq, D) queries over (H, Sk, D) keys and values,
     causal over the last Sq keys.  Passes 0: float64 throughout; else each
     product through ``tf32_matmul``, P rounded to fp32 as the kernel holds
-    it before its split."""
+    it before its split.  split (with passes): head_dim over two CTAs, as
+    the cluster route forms it: S as the fp32 sum of the partials over
+    columns :split and split: (each by ``chunk_sum``), P V on each part's
+    columns of V."""
     Sq, Sk, D = q.shape[1], k.shape[1], q.shape[2]
     scale = D ** -0.5 if scale is None else scale
     if qk_passes == 0:
         s = q.double() @ k.double().transpose(1, 2)
+    elif split is not None:
+        kt = k.transpose(1, 2)
+        s = (chunk_sum(q[..., :split], kt[:, :split], qk_passes)
+             + chunk_sum(q[..., split:], kt[:, split:], qk_passes)).double()
     else:
         s = tf32_matmul(q, k.transpose(1, 2), qk_passes)
     s = s * scale
@@ -71,6 +92,9 @@ def attention(q, k, v, qk_passes, pv_passes, scale=None, causal=True):
     p = torch.softmax(s, dim=-1)
     if pv_passes == 0:
         return p @ v.double()
+    if split is not None:
+        return torch.cat([tf32_matmul(p.float(), v[..., :split], pv_passes),
+                          tf32_matmul(p.float(), v[..., split:], pv_passes)], dim=-1)
     return tf32_matmul(p.float(), v, pv_passes)
 
 
@@ -133,3 +157,13 @@ def test_long_one_sign_row():
     k = torch.from_numpy(rng.random((2, S, D), dtype=np.float32))
     v = torch.from_numpy((1 + 0.1 * rng.random((2, S, D))).astype(np.float32))
     assert _err(q, k, v, 3, 3) <= TOL_FP32 / 100
+
+
+def test_cluster_halves_meet_the_tolerance():
+    """Head_dim 256 over a cluster of two CTAs (the forward's route at 128 <
+    head_dim <= 256): S from two 128-column partials, three passes each,
+    summed in fp32 by 32-column chunks and added in fp32; P V in three
+    passes on each CTA's 128 columns of V; at the model's score scale, as
+    the backward's cluster case holds it."""
+    q, k, v = _qkv(4, 256, 256, seed=6)
+    assert _err(q, k, v, 3, 3, split=128) <= TOL_FP32 / 100

@@ -9,8 +9,8 @@ machine with a card:
 Tolerances: fp32 1e-4 abs+rel.  Kernel and plain version sum over head_dim,
 keys and d_model/d_ff in different orders on the card (the plain version
 through full-fp32 cuBLAS products, TF32 off; SwiGLU at T > 16 and flash
-attention at head_dim <= 128 through 3xTF32 tensor-core products,
-fp32-accurate as ``tests/test_torch_swiglu_split.py`` and
+attention at head_dims that are multiples of 8 through 3xTF32 tensor-core
+products, fp32-accurate as ``tests/test_torch_swiglu_split.py`` and
 ``tests/test_torch_attention_tf32.py`` show), so they agree to fp32
 rounding of those sums, not bitwise.  bf16 outputs are rounded to bf16
 (relative step 2^-8): 2e-2 for attention, 3e-2 for SwiGLU, as in
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import build_all
+from repro_torch.kernels.flash_attention import FWD_ROUTES, flash_attention_fwd_route
 
 pytestmark = pytest.mark.cuda
 
@@ -125,10 +126,21 @@ ATTN_CASES = [
     (3, 1, 8, 2, 32, None, None, True, torch.float32),         # S = 1
     (2, 63, 8, 2, 64, None, None, True, torch.float32),        # both sides of a
     (2, 65, 16, 4, 128, None, None, True, torch.float32),      # 64-row tile
-    (1, 200, 4, 2, 160, None, None, True, torch.float32),      # the SIMT route
+    (1, 200, 4, 2, 160, None, None, True, torch.float32),      # clusters: rank 1 holds 32 columns
     (2, 200, 8, 2, 128, None, None, True, torch.bfloat16),     # bf16 on the tensor cores
     (2, 512, 8, 4, 256, None, 50.0, True, torch.float32),      # gemma2: head_dim 256, softcap
+    (2, 512, 8, 1, 256, None, None, True, torch.float32),      # gemma-2b: head_dim 256, MQA
+    (1, 100, 2, 2, 256, None, None, True, torch.float32),      # clusters: S not a multiple of 64
+    (1, 300, 4, 2, 256, 100, 50.0, True, torch.float32),       # window + softcap, ragged
+    (2, 130, 4, 2, 256, None, None, False, torch.float32),     # non-causal at 256, ragged
+    (2, 200, 8, 2, 256, None, 30.0, True, torch.bfloat16),     # bf16 on the clusters
+    (1, 150, 4, 2, 192, 50, None, True, torch.float32),        # head_dim 192, window
+    (1, 150, 4, 2, 252, None, None, True, torch.float32),      # head_dim 252: the SIMT route
 ]
+
+
+def _route_of(D):
+    return "simt" if D % 8 else "tc" if D <= 128 else "tc_cluster"
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -139,7 +151,11 @@ def test_flash_kernel_matches_plain(dev, case):
     k = _rand(rng, (B, S, Hkv, D), dev, dtype)
     v = _rand(rng, (B, S, Hkv, D), dev, dtype)
     kw = dict(window=win, softcap=cap, causal=causal)
+    route = _route_of(D)
+    assert flash_attention_fwd_route(q, k, v) == route
+    routes = dict(FWD_ROUTES)
     out = ops.flash_attention_op(q, k, v, **kw)
+    assert {n: FWD_ROUTES[n] - routes[n] for n in routes} == {n: int(n == route) for n in routes}
     ref = ops.plain_flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     tol = _tol(dtype)
@@ -163,12 +179,52 @@ def test_flash_kernel_long_row_one_sign(dev):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
-def test_flash_kernel_deterministic(dev):
+def test_flash_kernel_deterministic(dev, shape=(2, 512, 32, 32, 96)):
     """No atomics: two runs on the same inputs give the same bits."""
+    B, S, H, Hkv, D = shape
     rng = np.random.default_rng(21)
-    q, k, v = (_rand(rng, (2, 512, 32, 96), dev) for _ in range(3))
+    q, k, v = (_rand(rng, (B, S, n, D), dev) for n in (H, Hkv, Hkv))
     a, b = (ops.flash_attention_op(q, k, v) for _ in range(2))
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_flash_kernel_deterministic_mqa_256(dev):
+    """The same at gemma-2b's MQA prefill on the clusters (the partial
+    scores exchanged and added in one order), and the output the same bits
+    with and without the logsumexp."""
+    test_flash_kernel_deterministic(dev, shape=(2, 512, 8, 1, 256))
+    rng = np.random.default_rng(25)
+    q, k, v = (_rand(rng, (2, 512, n, 256), dev) for n in (8, 1, 1))
+    assert flash_attention_fwd_route(q, k, v) == "tc_cluster"
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.expand(-1, -1, 8, -1)) * 256 ** -0.5
+    mask = torch.ones(512, 512, dtype=torch.bool, device=dev).tril()
+    want = torch.logsumexp(torch.where(mask, s, -1e30), dim=-1)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_kernel_long_one_sign_256(dev):
+    """Causal rows of 8192 keys at head_dim 256 on the clusters, q/k uniform
+    in [0, 1), V in [1, 1.1): each CTA's partial scores are one-sign sums
+    over its 128 columns (q . k ~ 64 in all), where one truncating
+    accumulator would drift; held to the plain version and to float64."""
+    rng = np.random.default_rng(26)
+    S, D = 8192, 256
+
+    def u(shape, lo=0.0, width=1.0):
+        return torch.from_numpy((lo + width * rng.random(shape)).astype(np.float32)).to(dev)
+
+    q, k, v = u((1, S, 2, D)), u((1, S, 1, D)), u((1, S, 1, D), 1.0, 0.1)
+    assert flash_attention_fwd_route(q, k, v) == "tc_cluster"
+    out = ops.flash_attention_op(q, k, v)
+    torch.testing.assert_close(out, ops.plain_flash_attention(q, k, v), atol=1e-4, rtol=1e-4)
+    qd, kd, vd = (t.double().expand(-1, -1, 2, -1) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * D ** -0.5
+    keep = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    p = torch.softmax(s.masked_fill_(~keep, float("-inf")), dim=-1)
+    exact = torch.einsum("bhqk,bkhd->bqhd", p, vd)
+    torch.testing.assert_close(out.double(), exact, atol=1e-4, rtol=0)
 
 
 SWIGLU_CASES = [
@@ -335,10 +391,6 @@ BWD_CASES = [
 ]
 
 
-def _bwd_route_of(D):
-    return "simt" if D % 8 else "tc" if D <= 128 else "tc_cluster"
-
-
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernel_matches_plain(dev, case):
     B, S, H, Hkv, D, win, cap, causal, dtype = case
@@ -348,7 +400,7 @@ def test_flash_bwd_kernel_matches_plain(dev, case):
     v = _rand(rng, (B, S, Hkv, D), dev, dtype).requires_grad_(True)
     dout = _rand(rng, (B, S, H, D), dev, dtype, scale=1.0)
     kw = dict(causal=causal, window=win, softcap=cap)
-    route = _bwd_route_of(D)
+    route = _route_of(D)
     assert flash_attention_bwd_route(q, k, v, dout) == route
     before, routes = ops.LAUNCHES["flash_attention_bwd"], dict(BWD_ROUTES)
     out = ops.flash_attention_op(q, k, v, **kw)
