@@ -13,7 +13,8 @@ d_inner 16384 and d_state 16, vocab 65536), serves the published
 vocab 65536), and serves ``gemma-2b``, ``gemma2-2b`` and ``deepseek-7b``
 whole and trains ``gemma2-2b`` whole (26 layers, d_model 2304, 8/4 heads x
 256, d_ff 9216, vocab 256000, tied embeddings, softcaps 50 and 30, a local
-window of 4096 on every other layer):
+window of 4096 on every other layer), and serves 12 and trains 2 of the 32
+layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
@@ -208,6 +209,34 @@ window of 4096 on every other layer):
    at 6b's batch flags, 4 steps): the split, the predicted round and the
    summed work beside the measured ms/step, launch counts, every forward on
    the two-CTA clusters (6c's on the tensor-core route);
+11. (after 10f, before phase 9's traces) phi3.5-moe-42b-a6.6b (d_model 4096,
+   32/8 heads x 128, 16 experts x 6400 at top 2, vocab 32064) at full width:
+   every kernel of its paths at their shapes against its plain version,
+   timed beside the plain version, the library call and the bound:
+   ``fused_swiglu`` at one expert (W 4096 x 6400; x (641, 4096), a
+   prefill's or training micro-batch's capacity buffer, and (2, 4096), a
+   decode step's), ``swiglu_bwd`` at (641, 6400), the flash forward and
+   backward at the prefill (8, 512) and the micro-batch (2, 2048),
+   ``flash_decode`` at a decode step, the wire kernels at a stage boundary
+   and the largest gradient bucket;
+11a. one MoE layer on (1, 64) tokens, card vs CPU on the same weights: the
+   routing decisions (experts, kept slots) equal first (else the smallest
+   k-th/(k+1)-th score gap is printed and the phase fails), then the
+   output, the aux loss and the gradients of ``sum(out * r) + aux`` for
+   every leaf and the input; two card runs bitwise equal;
+11b. a 2-layer cut at capacity factor 64 (nothing drops at either token
+   count): prefill (2, 256) last-position logits against 256 lockstep decode
+   steps, within 7b's tolerance;
+11c. 12 of the 32 layers served (63.5 GB of weights): a prefill 8 x 512,
+   warmed up at that shape and timed 4 times (median and range), then
+   ``launch.serve.lockstep_decode`` at batch 8, prompt 128 + gen 128; the
+   exact launch counts (16 ``fused_swiglu`` a layer and forward), the
+   device-busy share of a decode step, the experts' share of the
+   prefill's and a decode step's device time, the peak memory;
+11d. 2 layers trained through ``launch.train --n-layers 2 --stage 2
+   --n-micro 4 --global-batch 8 --seq 2048 --compress int8 --bucket-mb 256
+   --no-error-feedback``, 1 warm-up + 2 steps: each step's ``ce`` and
+   ``aux`` (finite, aux > 0), launch counts, ms/step, peak memory;
 9. reads device times at the training shape from profiler traces (last,
    because tracing slows later launches): the flash forward beside SDPA's
    forward, the flash backward alone, and the port's forward with the
@@ -222,8 +251,9 @@ window of 4096 on every other layer):
    planned training, staleness-1 and
    failure-recovery training, portfolio (6e (a), (b)), Jamba serving,
    rwkv6-7b serving, the three dense serving paths, gemma2-2b training and
-   planned training, gemma-2b training (10d-10f), and phase 10a's rows under
-   ``dense``) and,
+   planned training, gemma-2b training (10d-10f), phi3.5-moe serving and
+   training (11c, 11d), phase 10a's rows under ``dense`` and phase 11's
+   under ``phi35_moe``) and,
    last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
@@ -233,10 +263,12 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1482,7 +1514,7 @@ def phase_serve(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b") -> dic
     pf = build_prefill_step(cfg, batch_global=B, seq_len=S)
     pf.step_fn(params, {"tokens": tokens[:1, :64]})          # warm-up (cuBLAS)
     torch.cuda.synchronize()
-    device_ms = profile_decode(torch, cfg, params, tokens[:, 0], B, prompt + gen, dev)
+    device_ms, _ = profile_decode(torch, cfg, params, tokens[:, 0], B, prompt + gen, dev)
 
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -2077,14 +2109,28 @@ def profile_train_step(torch, ts, params, opt_state, batch):
     return busy_ms, wall_ms
 
 
-def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
-    """Device kernel time per decode step from a ``torch.profiler`` trace of
-    ``n_steps`` steps at half the cache length (after 2 untraced ones);
-    prints the top kernels.
-    Returns None when the trace holds no device time."""
+def trace_cuda(torch, fn, n: int):
+    """(device ms a call, or None when the trace holds no device time; the
+    CUDA kernels' ``key_averages`` rows) of a ``torch.profiler`` trace of
+    ``n`` calls of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    return (total_us / n / 1e3 if total_us > 0 else None), kernels
+
+
+def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
+    """Device kernel time per decode step from a ``torch.profiler`` trace of
+    ``n_steps`` steps at half the cache length (after 2 untraced ones);
+    prints the top kernels.  Returns (that time, or None when the trace
+    holds no device time; the trace's CUDA kernel rows)."""
     from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
 
     ss = build_serve_step(cfg, batch_global=B, cache_len=cache_len)
@@ -2092,22 +2138,18 @@ def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
     start = cache_len // 2            # mid-run cache length
     for pos in range(start - 2, start):
         ss.step_fn(params, token, pos, states)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for pos in range(start, start + n_steps):
-            ss.step_fn(params, token, pos, states)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kernels)
-    if total_us <= 0:
+    positions = iter(range(start, start + n_steps))
+    busy_ms, kernels = trace_cuda(
+        torch, lambda: ss.step_fn(params, token, next(positions), states), n_steps)
+    del states
+    if busy_ms is None:
         print("  profiler trace holds no device time: device busy share not measured")
-        return None
+        return None, kernels
     print(f"  decode-step trace ({n_steps} steps): top kernels by device time")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / n_steps / 1e3:8.3f} ms/step "
               f"{e.count // n_steps:5d} launches/step  {e.key[:90]}")
-    del states
-    return total_us / n_steps / 1e3
+    return busy_ms, kernels
 
 
 # ---------------------------------------------------------------------------
@@ -2338,10 +2380,12 @@ def phase_double_buffer(torch, ops, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def _train_counts(L, M, P, nb):
+def _train_counts(L, M, P, nb, experts: int = 1):
+    """One step's launches: L layers, M micro-batches, P stages, nb buckets;
+    each MoE layer runs ``experts`` MLPs where a dense layer runs one."""
     hops = M * (P - 1)
     return {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
-            "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
+            "fused_swiglu": 2 * experts * L * M, "swiglu_bwd": experts * L * M,
             "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
             "mamba_scan": 0, "rwkv6_wkv": 0}
 
@@ -2987,8 +3031,8 @@ def phase_jamba_layers(torch, dev) -> None:
         p_card = init_layer(torch.Generator(device=dev).manual_seed(21 + index), cfg, spec, dev)
         p_cpu = _tree_to(p_card, cpu)
         with torch.inference_mode():
-            y_card = apply_layer(p_card, x.to(dev), positions.to(dev), cfg, spec).cpu()
-            y_cpu = apply_layer(p_cpu, x, positions, cfg, spec)
+            y_card = apply_layer(p_card, x.to(dev), positions.to(dev), cfg, spec)[0].cpu()
+            y_cpu = apply_layer(p_cpu, x, positions, cfg, spec)[0]
             if not bool(torch.isfinite(y_card).all()):
                 raise AssertionError(f"non-finite {spec.kind} layer output on the card")
             check(_rel(torch, y_card, y_cpu), TOL_JAMBA_LAYER,
@@ -3050,7 +3094,7 @@ def phase_jamba_serve(torch, ops, dev, card: str) -> dict:
     pf.step_fn(params, {"tokens": tokens[:B]})                    # warm-up
     torch.cuda.synchronize()
     batch, prompt, gen = 8, 64, 64
-    device_ms = profile_decode(torch, cfg, params, tokens[:batch, 0], batch, prompt + gen, dev)
+    device_ms, _ = profile_decode(torch, cfg, params, tokens[:batch, 0], batch, prompt + gen, dev)
 
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -3120,8 +3164,8 @@ def phase_rwkv_layer(torch, dev) -> None:
     p_card["rwkv_tm"]["w_lora_b"].normal_(0.0, 0.5, generator=gd)
     p_cpu = _tree_to(p_card, cpu)
     with torch.inference_mode():
-        y_card = apply_layer(p_card, x.to(dev), positions.to(dev), cfg, spec).cpu()
-        y_cpu = apply_layer(p_cpu, x, positions, cfg, spec)
+        y_card = apply_layer(p_card, x.to(dev), positions.to(dev), cfg, spec)[0].cpu()
+        y_cpu = apply_layer(p_cpu, x, positions, cfg, spec)[0]
         if not bool(torch.isfinite(y_card).all()):
             raise AssertionError("non-finite rwkv layer output on the card")
         check(_rel(torch, y_card, y_cpu), TOL_RWKV_LAYER,
@@ -3181,7 +3225,7 @@ def phase_rwkv_serve(torch, ops, dev, card: str) -> dict:
         x, worst = embed_tokens(params, tokens[:B, :S], cfg), 0.0
         for i in range(cfg.n_layers):
             p = tree_index(params["periods"], i)["layers"][0]
-            y = apply_layer(p, x, positions, cfg, spec)
+            y = apply_layer(p, x, positions, cfg, spec)[0]
             st = init_layer_state(B, S, cfg, spec, cfg.cdtype, dev)
             ys = torch.stack([decode_layer(p, x[:, t], t, st, cfg, spec)[0]
                               for t in range(S)], dim=1)
@@ -3210,7 +3254,7 @@ def phase_rwkv_serve(torch, ops, dev, card: str) -> dict:
     pf.step_fn(params, {"tokens": tokens})                        # warm-up
     torch.cuda.synchronize()
     batch, prompt, gen = 8, 64, 64
-    device_ms = profile_decode(torch, cfg, params, tokens[:batch, 0], batch, prompt + gen, dev)
+    device_ms, _ = profile_decode(torch, cfg, params, tokens[:batch, 0], batch, prompt + gen, dev)
 
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -3313,6 +3357,153 @@ def swiglu_bwd_check(torch, kernel, plain_fn, gg, uu, dh, draw: str) -> float:
     return err
 
 
+def attn_rows(torch, ops, F, dev, name, shape, gen, rows: dict,
+              tol: float = TOL_DENSE_ATTN) -> None:
+    """``flash_attention`` and ``flash_attention_bwd`` at ``shape`` = (B, S,
+    H, Hkv, D, window, softcap), causal, fp32, inputs drawn from ``gen``:
+    each against its plain version within ``tol`` (and, at head_dim 256, two
+    runs bitwise on the clusters; from 2048 rows, the backward against
+    float64 too), then
+    timed beside its bound, plain version and SDPA (where there is no
+    window or softcap); one row each appended to ``rows`` under ``name``."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_route,
+                                                     flash_attention_fwd_route)
+
+    B, S, H, Hkv, D, win, cap = shape
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    q, k, v = (rnd(B, S, n, D) for n in (H, Hkv, Hkv))
+    dout = rnd(B, S, H, D, scale=1.0)
+    kw = dict(window=win, softcap=cap)
+    what = f"({B}, {S}, {H}, {Hkv}, {D}) causal window={win} softcap={cap}"
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    f_err = max_err(out, ops.plain_flash_attention(q, k, v, **kw))
+    check(f_err, tol, f"flash_attention {name} {what}")
+    f_route = flash_attention_fwd_route(q, k, v)
+    check_route(f_route, fwd_route_of(D), f"flash_attention {name}")
+    if D > 128:
+        # head_dim 256: the two-CTA clusters, deterministic, and the
+        # output the same bits without the logsumexp
+        again, lse2 = flash_attention(q, k, v, return_lse=True, **kw)
+        same = bitwise_equal(torch, out, again) and bitwise_equal(torch, lse, lse2)
+        bare = bitwise_equal(torch, out, flash_attention(q, k, v, **kw))
+        del again, lse2
+        print(f"  flash_attention {name}: route {f_route}, two runs bitwise "
+              f"{'equal' if same else 'DIFFERENT'}, without the logsumexp "
+              f"{'equal' if bare else 'DIFFERENT'}")
+        if not (same and bare):
+            raise AssertionError(f"flash_attention {name}: two runs bitwise {same}, "
+                                 f"with and without the logsumexp {bare}")
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    plain = ops.plain_flash_attention_bwd(q, k, v, dout, **kw)
+    b_err = max(max_err(a, b) for a, b in zip(got, plain))
+    b_tol = tol
+    if S >= 2048:
+        exact = attention_bwd_float64(torch, q, k, v, dout, **kw)
+        check(max(max_err(a, b) for a, b in zip(got, exact)),
+              tol, f"flash_attention_bwd {name} against float64")
+        p64 = max(max_err(a, b) for a, b in zip(plain, exact))
+        print(f"  plain flash_attention_bwd {name} against float64: max abs err {p64:.3e}")
+        if name == "gemma_train":
+            # there the plain version is itself about TOL_DENSE_ATTN from
+            # the exact answer (2.623e-05 on draws of seed 29 on an H100:
+            # dV sums 8 heads x 8192 queries in two fp32 stages), so the
+            # kernel, held to TOL_DENSE_ATTN from float64 above, is held
+            # to the plain version within TOL_DENSE_ATTN plus that distance
+            b_tol += p64
+        del exact
+    del plain
+    check(b_err, b_tol, f"flash_attention_bwd {name} {what} dq/dk/dv")
+    route = flash_attention_bwd_route(q, k, v, dout)
+    if D > 128:
+        # head_dim 256: the two-CTA clusters, deterministic
+        same = all(bitwise_equal(torch, a, b) for a, b in
+                   zip(got, flash_attention_bwd(q, k, v, out, lse, dout, **kw)))
+        print(f"  flash_attention_bwd {name}: route {route}, two runs bitwise "
+              f"{'equal' if same else 'DIFFERENT'}")
+        if route != "tc_cluster" or not same:
+            raise AssertionError(f"flash_attention_bwd {name}: route {route}, two runs "
+                                 f"bitwise {'equal' if same else 'different'}")
+    del got
+    torch.cuda.empty_cache()
+    f_ms = time_ms([lambda: ops.flash_attention_op(q, k, v, **kw)], torch)
+    f_plain = time_ms([lambda: ops.plain_flash_attention(q, k, v, **kw)], torch)
+    b_ms = time_ms([lambda: flash_attention_bwd(q, k, v, out, lse, dout, **kw)], torch)
+    b_plain = time_ms([lambda: ops.plain_flash_attention_bwd(q, k, v, dout, **kw)], torch)
+    f_lib = b_lib = None
+    if cap is None and win is None:
+        # SDPA on the heads expanded to q's beforehand (outside the timing)
+        qt, kt, vt = (t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2).detach()
+                      .requires_grad_(True) for t in (q, k, v))
+        dt = dout.transpose(1, 2)
+        f_lib = time_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                is_causal=True)], torch)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(o, (qt, kt, vt), dt)
+
+        b_lib = time_ms([sdpa], torch)
+
+        def port():
+            o, ls = flash_attention(q, k, v, return_lse=True)
+            flash_attention_bwd(q, k, v, o, ls, dout)
+
+        fb_ms = time_ms([port], torch)
+        print(f"  flash attention forward + backward {name}: port {fb_ms:.4f} ms, SDPA "
+              f"{b_lib:.4f} ms")
+        del qt, kt, vt, dt
+    fb, fby = flash_bound(B, S, H, Hkv, D, window=win, softcap=cap)
+    bb, bby = flash_bwd_bound(B, S, H, D, Hkv, win, cap)
+    lib = "none" if f_lib is None else f"{f_lib:.4f} ms"
+    print(f"  flash_attention {name} ({f_route}): kernel {f_ms:.4f} ms, plain "
+          f"{f_plain:.4f} ms, SDPA {lib}, bound {fb:.4f} ms ({fby}, {fb / f_ms:.1%} of it)")
+    lib = "none" if b_lib is None else f"{b_lib:.4f} ms (fwd+bwd)"
+    print(f"  flash_attention_bwd {name}: kernel {b_ms:.4f} ms, plain (autograd) "
+          f"{b_plain:.4f} ms, SDPA {lib}, bound {bb:.4f} ms ({bby}, {bb / b_ms:.1%} of it)")
+    shape = f"q/k/v ({B},{S},{H},{D}) kv {Hkv} causal window {win} softcap {cap} fp32"
+    rows["flash_attention"].append(
+        {"row": name, "route": f_route, "max_abs_err": f_err, "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": fb, "bound_by": fby, "library_ms": f_lib,
+         "shape": shape})
+    rows["flash_attention_bwd"].append(
+        {"row": name, "route": route, "max_abs_err": b_err, "ms": b_ms,
+         "plain_ms": b_plain, "bound_ms": bb, "bound_by": bby, "library_ms": b_lib,
+         "shape": shape})
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+
+def decode_row(torch, ops, F, dev, g, name, shapes, cap=None) -> dict:
+    """``flash_decode`` at ``shapes[name]`` (as ``DECODE_SHAPES``), fp32,
+    inputs from ``g``, under softcap ``cap``: against its plain version,
+    then timed beside its bound, plain version and SDPA (none under a
+    softcap); its row."""
+    B, H, Hkv, S, D, lens = shapes[name]
+    q, k, v, clen = decode_inputs(torch, dev, g, name, shapes=shapes)
+    err = max_err(ops.flash_decode_op(q, k, v, clen, softcap=cap),
+                  ops.plain_flash_decode(q, k, v, clen, softcap=cap))
+    check(err, TOL_DENSE_ATTN, f"flash_decode {name} q ({B}, {H}, {D}) cache "
+                               f"({B}, {S}, {Hkv}, {D}) per-row lengths softcap={cap}")
+    ms = time_ms([lambda: ops.flash_decode_op(q, k, v, clen, softcap=cap)], torch)
+    plain = time_ms([lambda: ops.plain_flash_decode(q, k, v, clen, softcap=cap)], torch)
+    lib = None
+    if cap is None:
+        a = sdpa_decode_args(torch, q, k, v, clen)
+        lib = time_ms([lambda: F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                              attn_mask=a[3])], torch)
+    bms, by = decode_bound(name, shapes=shapes)
+    print(f"  flash_decode {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+    return {"row": name, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib,
+            "shape": f"q ({B},{H},{D}) cache ({B},{S},{Hkv},{D}) lens sum {sum(lens)} "
+                     f"softcap {cap} fp32"}
+
+
 def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
     """10a: the kernels at the dense families' shapes against their plain
     versions on the card, timed beside their bounds, plain versions and
@@ -3331,110 +3522,11 @@ def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
     def rnd(*shape, scale=0.5, gen=g):
         return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
-    for name, (B, S, H, Hkv, D, win, cap) in DENSE_ATTN.items():
+    for name, shape in DENSE_ATTN.items():
         # gemma-2b's micro-batch, the last row added, draws from its own
         # generator: the draws of the rows and checks after it stay as they were
         gen = torch.Generator(device=dev).manual_seed(31) if name == "gemma_train" else g
-        q, k, v = (rnd(B, S, n, D, gen=gen) for n in (H, Hkv, Hkv))
-        dout = rnd(B, S, H, D, scale=1.0, gen=gen)
-        kw = dict(window=win, softcap=cap)
-        what = f"({B}, {S}, {H}, {Hkv}, {D}) causal window={win} softcap={cap}"
-        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
-        f_err = max_err(out, ops.plain_flash_attention(q, k, v, **kw))
-        check(f_err, TOL_DENSE_ATTN, f"flash_attention {name} {what}")
-        f_route = flash_attention_fwd_route(q, k, v)
-        check_route(f_route, fwd_route_of(D), f"flash_attention {name}")
-        if D > 128:
-            # head_dim 256: the two-CTA clusters, deterministic, and the
-            # output the same bits without the logsumexp
-            again, lse2 = flash_attention(q, k, v, return_lse=True, **kw)
-            same = bitwise_equal(torch, out, again) and bitwise_equal(torch, lse, lse2)
-            bare = bitwise_equal(torch, out, flash_attention(q, k, v, **kw))
-            del again, lse2
-            print(f"  flash_attention {name}: route {f_route}, two runs bitwise "
-                  f"{'equal' if same else 'DIFFERENT'}, without the logsumexp "
-                  f"{'equal' if bare else 'DIFFERENT'}")
-            if not (same and bare):
-                raise AssertionError(f"flash_attention {name}: two runs bitwise {same}, "
-                                     f"with and without the logsumexp {bare}")
-        got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-        plain = ops.plain_flash_attention_bwd(q, k, v, dout, **kw)
-        b_err = max(max_err(a, b) for a, b in zip(got, plain))
-        tol = TOL_DENSE_ATTN
-        if S == 8192:
-            exact = attention_bwd_float64(torch, q, k, v, dout, **kw)
-            check(max(max_err(a, b) for a, b in zip(got, exact)),
-                  TOL_DENSE_ATTN, f"flash_attention_bwd {name} against float64")
-            p64 = max(max_err(a, b) for a, b in zip(plain, exact))
-            print(f"  plain flash_attention_bwd {name} against float64: max abs err {p64:.3e}")
-            if name == "gemma_train":
-                # there the plain version is itself about TOL_DENSE_ATTN from
-                # the exact answer (2.623e-05 on draws of seed 29 on an H100:
-                # dV sums 8 heads x 8192 queries in two fp32 stages), so the
-                # kernel, held to TOL_DENSE_ATTN from float64 above, is held
-                # to the plain version within TOL_DENSE_ATTN plus that distance
-                tol += p64
-            del exact
-        del plain
-        check(b_err, tol, f"flash_attention_bwd {name} {what} dq/dk/dv")
-        route = flash_attention_bwd_route(q, k, v, dout)
-        if D > 128:
-            # head_dim 256: the two-CTA clusters, deterministic
-            same = all(bitwise_equal(torch, a, b) for a, b in
-                       zip(got, flash_attention_bwd(q, k, v, out, lse, dout, **kw)))
-            print(f"  flash_attention_bwd {name}: route {route}, two runs bitwise "
-                  f"{'equal' if same else 'DIFFERENT'}")
-            if route != "tc_cluster" or not same:
-                raise AssertionError(f"flash_attention_bwd {name}: route {route}, two runs "
-                                     f"bitwise {'equal' if same else 'different'}")
-        del got
-        torch.cuda.empty_cache()
-        f_ms = time_ms([lambda: ops.flash_attention_op(q, k, v, **kw)], torch)
-        f_plain = time_ms([lambda: ops.plain_flash_attention(q, k, v, **kw)], torch)
-        b_ms = time_ms([lambda: flash_attention_bwd(q, k, v, out, lse, dout, **kw)], torch)
-        b_plain = time_ms([lambda: ops.plain_flash_attention_bwd(q, k, v, dout, **kw)], torch)
-        f_lib = b_lib = None
-        if cap is None and win is None:
-            # SDPA on the heads expanded to q's beforehand (outside the timing)
-            qt, kt, vt = (t.repeat_interleave(H // t.shape[2], 2).transpose(1, 2).detach()
-                          .requires_grad_(True) for t in (q, k, v))
-            dt = dout.transpose(1, 2)
-            f_lib = time_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                    is_causal=True)], torch)
-
-            def sdpa():
-                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-                torch.autograd.grad(o, (qt, kt, vt), dt)
-
-            b_lib = time_ms([sdpa], torch)
-
-            def port():
-                o, ls = flash_attention(q, k, v, return_lse=True)
-                flash_attention_bwd(q, k, v, o, ls, dout)
-
-            fb_ms = time_ms([port], torch)
-            print(f"  flash attention forward + backward {name}: port {fb_ms:.4f} ms, SDPA "
-                  f"{b_lib:.4f} ms")
-            del qt, kt, vt, dt
-        fb, fby = flash_bound(B, S, H, Hkv, D, window=win, softcap=cap)
-        bb, bby = flash_bwd_bound(B, S, H, D, Hkv, win, cap)
-        lib = "none" if f_lib is None else f"{f_lib:.4f} ms"
-        print(f"  flash_attention {name} ({f_route}): kernel {f_ms:.4f} ms, plain "
-              f"{f_plain:.4f} ms, SDPA {lib}, bound {fb:.4f} ms ({fby}, {fb / f_ms:.1%} of it)")
-        lib = "none" if b_lib is None else f"{b_lib:.4f} ms (fwd+bwd)"
-        print(f"  flash_attention_bwd {name}: kernel {b_ms:.4f} ms, plain (autograd) "
-              f"{b_plain:.4f} ms, SDPA {lib}, bound {bb:.4f} ms ({bby}, {bb / b_ms:.1%} of it)")
-        shape = f"q/k/v ({B},{S},{H},{D}) kv {Hkv} causal window {win} softcap {cap} fp32"
-        rows["flash_attention"].append(
-            {"row": name, "route": f_route, "max_abs_err": f_err, "ms": f_ms,
-             "plain_ms": f_plain, "bound_ms": fb, "bound_by": fby, "library_ms": f_lib,
-             "shape": shape})
-        rows["flash_attention_bwd"].append(
-            {"row": name, "route": route, "max_abs_err": b_err, "ms": b_ms,
-             "plain_ms": b_plain, "bound_ms": bb, "bound_by": bby, "library_ms": b_lib,
-             "shape": shape})
-        del q, k, v, dout, out, lse
-        torch.cuda.empty_cache()
+        attn_rows(torch, ops, F, dev, name, shape, gen, rows)
 
     # phase 3b's one-sign case at head_dim 256, MQA: 8192 causal rows, q/k
     # in [0, 1), dO and V in [1, 1.1), on the clusters: one-sign sums over up
@@ -3466,28 +3558,9 @@ def phase_dense_kernels(torch, ops, F, dev, entries: dict) -> None:
     del qq, kk, vv, do, o, ls, got, plain, exact
     torch.cuda.empty_cache()
 
-    for name, (B, H, Hkv, S, D, lens) in DENSE_DECODE_SHAPES.items():
-        cap = 50.0 if name == "gemma2" else None
-        q, k, v, clen = decode_inputs(torch, dev, g, name, shapes=DENSE_DECODE_SHAPES)
-        err = max_err(ops.flash_decode_op(q, k, v, clen, softcap=cap),
-                      ops.plain_flash_decode(q, k, v, clen, softcap=cap))
-        check(err, TOL_DENSE_ATTN, f"flash_decode {name} q ({B}, {H}, {D}) cache "
-                                   f"({B}, {S}, {Hkv}, {D}) per-row lengths softcap={cap}")
-        ms = time_ms([lambda: ops.flash_decode_op(q, k, v, clen, softcap=cap)], torch)
-        plain = time_ms([lambda: ops.plain_flash_decode(q, k, v, clen, softcap=cap)], torch)
-        lib = None
-        if cap is None:
-            a = sdpa_decode_args(torch, q, k, v, clen)
-            lib = time_ms([lambda: F.scaled_dot_product_attention(a[0], a[1], a[2],
-                                                                  attn_mask=a[3])], torch)
-        bms, by = decode_bound(name, shapes=DENSE_DECODE_SHAPES)
-        print(f"  flash_decode {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
-        rows["flash_decode"].append(
-            {"row": name, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-             "bound_by": by, "library_ms": lib,
-             "shape": f"q ({B},{H},{D}) cache ({B},{S},{Hkv},{D}) lens sum {sum(lens)} "
-                      f"softcap {cap} fp32"})
+    for name in DENSE_DECODE_SHAPES:
+        rows["flash_decode"].append(decode_row(torch, ops, F, dev, g, name, DENSE_DECODE_SHAPES,
+                                               50.0 if name == "gemma2" else None))
 
     # gemma2's MLP: GeGLU at d_model 2304, d_ff 9216, a decode step's 8 rows
     # and a 4096-row slice of its prefill
@@ -3554,7 +3627,7 @@ def phase_dense_parity(torch, dev) -> None:
     res = {}
     for side, device, p in (("card", dev, params), ("cpu", cpu, params_cpu)):
         with torch.inference_mode():
-            h, _ = model_forward(p, tokens.to(device), cfg)
+            h, _, _ = model_forward(p, tokens.to(device), cfg)
             logits = head_logits(p, h, cfg).cpu()
         ss = build_serve_step(cfg, batch_global=B, cache_len=steps)
         states = prepare_serve_states(cfg, ss.spec.plan, B, steps, device)
@@ -3621,7 +3694,7 @@ def phase_window_wrap(torch, ops, dev, card: str) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     with torch.inference_mode():
-        h, _ = model_forward(params, tokens, cfg)
+        h, _, _ = model_forward(params, tokens, cfg)
         want = head_logits(params, h[:, -last:], cfg)
     got = torch.stack(dec, 1)
     if not bool(torch.isfinite(got).all()):
@@ -3708,6 +3781,399 @@ def phase_dense_train(torch, ops, dev, card: str, arch: str = "gemma2-2b") -> di
     torch.cuda.empty_cache()
     return {"launches": launches, "ms_per_step": ms_step, "peak_gb": max(peaks) / 1e9,
             "busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE layer and phi3.5-moe-42b-a6.6b at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# the depths that fit one card at fp32: serving 12 of the 32 layers (62.4 GB
+# of layers, 1.05 GB of embedding and head); training 2 (11.45 GB of
+# parameters, 45.8 GB with gradients and AdamW's moments); a 2-layer cut for
+# prefill against decode
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = 12, 2, 2
+# 11c's prefill 8 x 512 is timed this many times after a warm-up at that
+# shape (the last the counted run of the path): median and range
+MOE_PREFILL_TIMED = 4
+# one MoE layer at full width, card (3xTF32 fused_swiglu, cuBLAS) vs CPU
+# (plain versions), max |diff| / max |value|: the output, and per leaf the
+# gradients of sum(out * r) + aux, which sum over 64 tokens and 4096-6400
+# terms in other orders; the aux loss (router in fp32 on both sides) to
+# 1e-6 absolute, the CPU tests' tolerance for it
+TOL_MOE_OUT = 5e-5
+TOL_MOE_AUX = 1e-6
+
+
+# flash attention on phi3.5-moe's paths, as DENSE_ATTN: the prefill (8 x
+# 512) and a training micro-batch (2 x 2048), 32 query and 8 KV heads of
+# 128, causal; and flash_decode at a lockstep decode step, batch 8 over a
+# 256-row cache, every row at 192 keys (generation's midpoint), as
+# DECODE_SHAPES.  The flash rows are held to TOL_FP32, phase 3's tolerance
+# for these kernels at head_dim <= 128: at the micro-batch the backward's
+# dV sums 4 heads x 2048 queries, and read 2.003e-05 from the plain version
+# on an H100, past 10a's TOL_DENSE_ATTN; it is held to float64 there too
+MOE_ATTN = {"prefill": (8, 512, 32, 8, 128, None, None),
+            "train": (2, 2048, 32, 8, 128, None, None)}
+MOE_DECODE_SHAPES = {"phi35_moe": (8, 32, 8, 256, 128, (192,) * 8)}
+
+
+def phase_moe_kernels(torch, ops, F, dev, entries: dict) -> None:
+    """11: the kernels at phi3.5-moe's shapes against their plain versions
+    on the card, timed beside their bounds, plain versions and library
+    calls, into each kernel's entry as ``phi35_moe`` rows: ``fused_swiglu``
+    at one expert (W 4096 x 6400, silu) on x (2, 4096), a decode step's
+    capacity buffer at batch 8, and x (641, 4096), a full buffer of the
+    prefill (8 x 512 tokens at top 2 of 16 experts, factor 1.25) or of a
+    training micro-batch (2 x 2048); ``swiglu_bwd`` on that buffer's
+    (641, 6400) products; the flash forward and backward at ``MOE_ATTN``;
+    ``flash_decode`` at ``MOE_DECODE_SHAPES``; ``quantize_tiles`` and
+    ``dequantize_tiles`` (int8, bitwise) at a stage boundary (2, 2048,
+    4096) and at the largest gradient bucket, a (2, 16, 4096, 6400) stacked
+    expert weight."""
+    from repro_torch.kernels import quant_transfer as qt
+    from repro_torch.kernels.fused_swiglu import swiglu_bwd
+    from repro_torch.kernels.ref import (naive_dequantize_tiles, naive_quantize_tiles,
+                                         naive_swiglu_act_bwd)
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    rows = {name: [] for name in ("fused_swiglu", "swiglu_bwd", "flash_attention",
+                                  "flash_attention_bwd", "flash_decode", "quantize_tiles",
+                                  "dequantize_tiles")}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    Dm, Fd = 4096, 6400
+    w = (rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Dm, Fd, scale=Dm ** -0.5),
+         rnd(Fd, Dm, scale=Fd ** -0.5))
+    xs = {T: rnd(T, Dm) for T in (2, 641)}
+    for name, T in (("decode", 2), ("prefill", 641)):
+        rows["fused_swiglu"].append(
+            {"row": name, **time_swiglu(torch, ops, F, xs[T], w, "phi3.5-moe expert")})
+
+    T = 641
+    gg, uu = xs[T] @ w[0], xs[T] @ w[1]
+    dh = rnd(T, Dm) @ w[2].T
+    err = max(max_err(a, b) for a, b in zip(swiglu_bwd(gg, uu, dh),
+                                           naive_swiglu_act_bwd(gg, uu, dh)))
+    check(err, TOL_ELEMENTWISE, f"swiglu_bwd phi3.5-moe expert ({T}, {Fd}) silu")
+    ms = time_ms([lambda: swiglu_bwd(gg, uu, dh)], torch)
+    plain = time_ms([lambda: naive_swiglu_act_bwd(gg, uu, dh)], torch)
+    bms, by = bound(6 * 4 * T * Fd, 0)
+    print(f"  swiglu_bwd phi3.5-moe expert ({T}, {Fd}) silu: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    rows["swiglu_bwd"].append({"row": "train", "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                               "library_ms": None, "shape": f"g/u/dh ({T},{Fd}) fp32 silu"})
+    del w, xs, gg, uu, dh
+
+    for name, shape in MOE_ATTN.items():
+        attn_rows(torch, ops, F, dev, name, shape, g, rows, TOL_FP32)
+    rows["flash_decode"].append(decode_row(torch, ops, F, dev, g, "phi35_moe",
+                                           MOE_DECODE_SHAPES))
+
+    tile = 256
+    for where, R in (("boundary", 2 * 2048 * 4096 // tile),
+                     ("largest_bucket", 2 * 16 * 4096 * 6400 // tile)):
+        x = wire_rows(torch, g, R, tile, "int8", dev)
+        q, sc = qt.quantize_tiles(x)
+        qr, sr = naive_quantize_tiles(x)
+        ok = (bitwise_equal(torch, q, qr) and bitwise_equal(torch, sc, sr)
+              and bitwise_equal(torch, qt.dequantize_tiles(q, sc),
+                                naive_dequantize_tiles(qr, sr)))
+        print(f"  quantize/dequantize int8 phi3.5-moe {where} ({R}, {tile}): bitwise "
+              f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            raise AssertionError(f"quant kernels differ from the plain versions: phi3.5-moe "
+                                 f"{where}")
+        del qr, sr
+        n = R * tile
+        for name, fn, plain_fn in (
+                ("quantize_tiles", lambda: qt.quantize_tiles(x),
+                 lambda: naive_quantize_tiles(x)),
+                ("dequantize_tiles", lambda: qt.dequantize_tiles(q, sc),
+                 lambda: naive_dequantize_tiles(q, sc))):
+            ms = time_ms([fn], torch)
+            plain = time_ms([plain_fn], torch)
+            bms, by = bound(4 * n + n + 4 * R, 0)
+            print(f"  {name} int8 phi3.5-moe {where} ({R}, {tile}): kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+            rows[name].append({"row": where, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                               "bound_ms": bms, "bound_by": by, "library_ms": None,
+                               "shape": f"({R}, {tile}) f32 <-> int8"})
+        del x, q, sc
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        entries[name]["phi35_moe"] = r
+
+
+def phase_moe_layer(torch, dev) -> None:
+    """11a: one full-width MoE layer (router 4096 x 16, 16 experts 4096 x
+    6400, top 2) on (1, 64) tokens, made on the card from a seed and copied
+    to the CPU: the routing decisions (experts and kept slots) equal first,
+    then the output, the aux loss and the gradients of ``sum(out * r) +
+    aux`` for every leaf and the input, card vs CPU; two card runs bitwise
+    equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.runtime.train import tree_paths
+
+    cfg = get_config(MOE_ARCH)
+    mc, E, D = cfg.moe, cfg.moe.n_experts, cfg.d_model
+    cpu = torch.device("cpu")
+    T = 64
+    p_card = tmoe.init_moe(torch.Generator(device=dev).manual_seed(33), D, mc,
+                           cfg.pdtype, dev)
+    p_cpu = _tree_to(p_card, cpu)
+    g = torch.Generator().manual_seed(34)
+    x = torch.randn((1, T, D), generator=g)
+    r = torch.randn((1, T, D), generator=g)
+    cap = tmoe.capacity(mc, T, E)
+
+    decided = {}
+    for name, p, d in (("card", p_card, dev), ("CPU", p_cpu, cpu)):
+        with torch.no_grad():
+            rt = tmoe.route(p, x.to(d).reshape(T, D), mc, E)
+            keep, slot = tmoe.dispatch_slots(rt.top_e, cap, E)
+        decided[name] = (rt.top_e.cpu(), keep.cpu(), slot.cpu(), rt.scores.cpu())
+    same = all(torch.equal(a, b) for a, b in zip(decided["card"][:3], decided["CPU"][:3]))
+    top = decided["CPU"][3].sort(dim=-1, descending=True).values
+    gap = float((top[:, mc.top_k - 1] - top[:, mc.top_k]).min())   # k-th less (k+1)-th
+    kept = int(decided["card"][1].sum())
+    print(f"  routing card vs CPU {'equal' if same else 'DIFFERENT'}: {T} tokens x top "
+          f"{mc.top_k} of {E} experts, capacity {cap}, {kept} of {T * mc.top_k} pairs kept; "
+          f"smallest k-th/(k+1)-th score gap {gap:.3e}")
+    if not same:
+        raise AssertionError(f"MoE routing differs between card and CPU (smallest gap {gap:.3e})")
+
+    def run(p, d):
+        pp = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        xx = x.to(d).requires_grad_(True)
+        out, aux = tmoe.moe(pp, xx, mc)
+        grads = torch.autograd.grad((out * r.to(d)).sum() + aux, [*tree_leaves(pp), xx])
+        return out.detach(), aux.detach(), grads
+
+    names = [*(".".join(k) for k in tree_paths(p_card)), "x"]
+    o1, a1, g1 = run(p_card, dev)
+    o2, a2, g2 = run(p_card, dev)
+    bitwise = (torch.equal(o1, o2) and torch.equal(a1, a2)
+               and all(torch.equal(u, v) for u, v in zip(g1, g2)))
+    print(f"  MoE layer: two card runs (output, aux, every gradient) bitwise "
+          f"{'equal' if bitwise else 'DIFFERENT'}")
+    if not bitwise:
+        raise AssertionError("the MoE layer on the card is not deterministic")
+    del o2, a2, g2
+    oh, ah, gh = run(p_cpu, cpu)
+    if not bool(torch.isfinite(o1).all()):
+        raise AssertionError("non-finite MoE output on the card")
+    check(_rel(torch, o1.cpu(), oh), TOL_MOE_OUT,
+          f"MoE layer (1, {T}) output card vs CPU, max|diff| / max|value|")
+    check(abs(float(a1) - float(ah)), TOL_MOE_AUX,
+          f"MoE aux loss card vs CPU ({float(ah):.6f})", "abs err")
+    worst = max(((_rel(torch, u.cpu(), v), n) for u, v, n in zip(g1, gh, names)))
+    for u, v, n in zip(g1, gh, names):
+        print(f"    grad {n}: max|diff| / max|value| {_rel(torch, u.cpu(), v):.3e}")
+    check(worst[0], TOL_GRAD_REL, f"MoE layer gradients card vs CPU, worst leaf {worst[1]}",
+          "max|diff| / max|value|")
+    del p_card, p_cpu, g1, gh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_cut(n_layers: int, **moe_kw):
+    """phi3.5-moe at ``n_layers`` of its 32, its MoE config replaced by
+    ``moe_kw``; every width the published one."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    return cfg.replace(n_layers=n_layers, moe=dataclasses.replace(cfg.moe, **moe_kw))
+
+
+def swiglu_ms(kernels, n: int) -> float:
+    """``fused_swiglu``'s device ms a call among a trace's CUDA kernel rows
+    over ``n`` calls (its two routes' kernels)."""
+    return sum(e.self_device_time_total for e in kernels
+               if any(f"(anonymous namespace)::{tag}" in e.key
+                      for tag in ("wgmma_gemm_kernel", "skinny_kernel"))) / n / 1e3
+
+
+def phase_moe_serve(torch, ops, dev, card: str) -> dict:
+    """11b: a 2-layer cut at capacity factor 64 (nothing drops), prefill (2,
+    256) last-position logits against 256 lockstep decode steps; 11c: 12
+    layers served as 7c serves Jamba: a prefill 8 x 512 warmed up at that
+    shape and timed ``MOE_PREFILL_TIMED`` times, the last the path's counted
+    run, then ``launch.serve.lockstep_decode`` at batch 8, prompt 128 + gen
+    128, the
+    exact launch counts, the device-busy share of a decode step, the
+    experts' share of the prefill's and a decode step's device time, the
+    peak memory."""
+    from repro_torch.launch.serve import lockstep_decode
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model import init_model
+    from repro_torch.runtime.serve import (build_prefill_step, build_serve_step,
+                                           prepare_serve_states)
+
+    print("phase 11b: phi3.5-moe prefill vs lockstep decode on the card, 2 layers, "
+          "capacity factor 64")
+    cfg = _moe_cut(MOE_PARITY_LAYERS, capacity_factor=64.0)
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    B, S = 2, 256
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    caps = (tmoe.capacity(cfg.moe, B * S, E), tmoe.capacity(cfg.moe, B, E))
+    if caps[0] < B * S or caps[1] < B:
+        raise AssertionError(f"capacities {caps} can drop pairs")
+    want = build_prefill_step(cfg, batch_global=B, seq_len=S).step_fn(
+        params, {"tokens": tokens[:B, :S]})
+    ss = build_serve_step(cfg, batch_global=B, cache_len=S)
+    states = prepare_serve_states(cfg, ss.spec.plan, B, S, dev)
+    for t in range(S):
+        logits, states = ss.step_fn(params, tokens[:B, t], t, states)
+    if not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(want).all()):
+        raise AssertionError("non-finite phi3.5-moe logits on the card")
+    print(f"  capacities {caps[0]} (prefill) and {caps[1]} (decode) rows an expert: no pair "
+          f"drops; max |logit| {float(want.abs().max()):.4f}")
+    check(_rel(torch, logits, want), TOL_PREFILL_DECODE,
+          f"phi3.5-moe prefill ({B}, {S}) last-position logits vs {S} lockstep decode steps, "
+          "max|diff| / max|logit|")
+    del params, states, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"phase 11c: serve phi3.5-moe at full width, {MOE_SERVE_LAYERS} of 32 layers")
+    cfg = _moe_cut(MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  weights {n_bytes / 1e9:.3f} GB ({cfg.param_count()} params) made on the card "
+          f"in {time.perf_counter() - t0:.2f}s")
+    B, S = 8, 512
+    batch, prompt, gen = 8, 128, 128
+    pf = build_prefill_step(cfg, batch_global=B, seq_len=S)
+
+    def prefill():
+        return pf.step_fn(params, {"tokens": tokens})
+
+    def timed_prefill():
+        t0 = time.perf_counter()
+        out = prefill()
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    prefill()                                                      # warm-up
+    prefill_ms = []
+    for _ in range(MOE_PREFILL_TIMED - 1):
+        timed_prefill()
+    n_steps = 8
+    busy_ms, dec_kernels = profile_decode(torch, cfg, params, tokens[:batch, 0], batch,
+                                          prompt + gen, dev, n_steps)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    logits = timed_prefill()
+    after_prefill = dict(ops.LAUNCHES)
+    res = lockstep_decode(cfg, params, batch=batch, prompt_len=prompt, gen=gen,
+                          temperature=0.8, device=dev)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if logits.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phi3.5-moe prefill logits {tuple(logits.shape)} not finite/shaped")
+    toks = res["tokens"]
+    if toks.shape != (prompt + gen, batch) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"phi3.5-moe decode tokens {toks.shape} out of range")
+    L, steps = cfg.n_layers, res["steps"]
+    want_prefill = {name: 0 for name in ops.LAUNCHES}
+    want_prefill.update(flash_attention=L, fused_swiglu=E * L)
+    want_all = dict(want_prefill, flash_decode=L * steps, fused_swiglu=E * L * (steps + 1))
+    print(f"  launches: prefill {after_prefill} (expected {want_prefill}); prefill + "
+          f"{steps} decode steps {launches} (expected {want_all})")
+    if after_prefill != want_prefill or launches != want_all:
+        raise AssertionError("phi3.5-moe serving launch counts differ from the path's")
+    step_ms = res["seconds"] / steps * 1e3
+    print(f"serve phi3.5-moe-42b-a6.6b full width fp32, {L} of 32 layers: prefill {B}x{S} "
+          f"median {statistics.median(prefill_ms):.3f} ms of {len(prefill_ms)} calls after a "
+          f"warm-up ({', '.join(f'{x:.3f}' for x in prefill_ms)} in order; capacity "
+          f"{tmoe.capacity(cfg.moe, B * S, E)} rows an expert); decode {step_ms:.3f} ms/step "
+          f"over {steps} steps (batch {batch}, cache {prompt + gen}, capacity "
+          f"{tmoe.capacity(cfg.moe, batch, E)}), {E * L} fused_swiglu and {L} flash_decode "
+          f"launches a step; {res['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.3f} GB; "
+          f"card {card}")
+    shares = {}
+    if busy_ms is not None:
+        print(f"  device busy {busy_ms:.3f} ms of the {step_ms:.3f} ms decode step "
+              f"({busy_ms / step_ms:.1%}; idle {1 - busy_ms / step_ms:.1%})")
+        shares["decode step"] = (busy_ms, swiglu_ms(dec_kernels, n_steps))
+    total, kernels = trace_cuda(torch, prefill, 1)
+    if total is None:
+        print("  prefill: the profiler trace holds no device time; expert share not measured")
+    else:
+        shares["prefill"] = (total, swiglu_ms(kernels, 1))
+    for name, (total, swiglu) in shares.items():
+        print(f"  {name}: device {total:.3f} ms, of it the experts' fused_swiglu {swiglu:.3f} ms "
+              f"({swiglu / total:.1%}), the rest (attention, router, dispatch, combine, "
+              f"head) {total - swiglu:.3f} ms")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "peak_gb": peak / 1e9, "busy_ms": busy_ms, "shares": shares}
+
+
+def phase_moe_train(torch, ops, dev, card: str) -> dict:
+    """11d: phi3.5-moe, 2 layers at full width, through ``launch.train
+    --n-layers 2 --stage 2 --n-micro 4 --global-batch 8 --seq 2048
+    --compress int8 --bucket-mb 256 --no-error-feedback``, 1 warm-up + 2
+    timed steps: each step's ``ce`` and ``aux`` (finite, aux > 0), its
+    launch counts against the path's (every expert's ``fused_swiglu`` and
+    ``swiglu_bwd`` per layer and micro-batch), and none outside the steps;
+    ms/step and the peak memory."""
+    from repro_torch.launch import train as launcher
+
+    L, P, M, B, S, steps = MOE_TRAIN_LAYERS, 2, 4, 8, 2048, 3
+    argv = ["--arch", MOE_ARCH, "--n-layers", str(L), "--stage", str(P), "--n-micro", str(M),
+            "--global-batch", str(B), "--seq", str(S), "--steps", str(steps), "--compress",
+            "int8", "--bucket-mb", "256", "--no-error-feedback", "--log-every", "1"]
+    marks, peaks = [], []
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES), None))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step)
+    launches = dict(ops.LAUNCHES)
+    ts = res["ts"]
+    cfg, nb = ts.spec.cfg, len(ts.buckets)
+    E = cfg.moe.n_experts
+    _check_marks(marks, launches, lambda label, extra: _train_counts(L, M, P, nb, E))
+    for i, m in enumerate(res["metrics"]):
+        print(f"  step {i}: loss {res['losses'][i]:.6f} = ce {m['ce']:.6f} + aux {m['aux']:.6f}")
+        if not (math.isfinite(m["ce"]) and math.isfinite(m["aux"]) and m["aux"] > 0):
+            raise AssertionError(f"step {i}: ce {m['ce']} and aux {m['aux']} must be finite, "
+                                 "aux > 0")
+    n_state = sum(t.numel() * t.element_size() for t in _leaves(res["params"]))
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    per = {k: v for k, v in _train_counts(L, M, P, nb, E).items() if v}
+    print(f"train phi3.5-moe-42b-a6.6b full width fp32 ({L} layers, {E} experts x "
+          f"{cfg.moe.d_ff}), {P} virtual stages {ts.spec.ranges} x {M} micro-batches, batch "
+          f"{B}x{S}, int8 wire ({nb} gradient buckets): {ms_step:.1f} ms/step over "
+          f"{res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; parameters "
+          f"{n_state / 1e9:.3f} GB (x4 with gradients and AdamW's moments: "
+          f"{4 * n_state / 1e9:.3f} GB); peak memory {max(peaks) / 1e9:.3f} GB (each step "
+          f"{[round(x / 1e9, 3) for x in peaks]}); launches a step {per}; card {card}")
+    del res, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gb": max(peaks) / 1e9}
 
 
 def _tree_to(tree, device):
@@ -3819,6 +4285,15 @@ def main() -> int:
     print("phase 10e: train gemma-2b whole at seq 8192, uniform split")
     gemma_train = phase_dense_train(torch, ops, dev, card, arch="gemma-2b")
     dense_plan = phase_plan_train(torch, ops, dev, card, arch="gemma2-2b", label="10f")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 11: kernels at phi3.5-moe's shapes against their plain versions")
+    phase_moe_kernels(torch, ops, F, dev, {e["name"]: e for e in entries})
+    print("phase 11a: a phi3.5-moe MoE layer at full width, card vs CPU")
+    phase_moe_layer(torch, dev)
+    moe_serve = phase_moe_serve(torch, ops, dev, card)
+    print(f"phase 11d: train phi3.5-moe at full width, {MOE_TRAIN_LAYERS} layers, uniform split")
+    moe_train = phase_moe_train(torch, ops, dev, card)
     print("phase 9: flash attention's device times at the training shape")
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 9b: the Mamba scan's device time at the Jamba prefill's shape")
@@ -3841,7 +4316,9 @@ def main() -> int:
                       for arch in DENSE_ARCHS},
                    "gemma2_train": dense_train["launches"][e["name"]],
                    "gemma_train": gemma_train["launches"][e["name"]],
-                   "gemma2_plan_train": dense_plan["launches"][e["name"]]}
+                   "gemma2_plan_train": dense_plan["launches"][e["name"]],
+                   "phi35_moe_serve": moe_serve["launches"][e["name"]],
+                   "phi35_moe_train": moe_train["launches"][e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")
         e["launches"] = sum(by_path.values())

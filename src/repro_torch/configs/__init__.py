@@ -9,25 +9,23 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import deepseek_7b, gemma2_2b, gemma_2b, phi3_mini, rwkv6_7b
+from . import (deepseek_7b, gemma2_2b, gemma_2b, jamba_1_5_large, phi3_5_moe_42b,
+               phi3_mini, rwkv6_7b)
 from .common import smoke_reduce
 
-_MODULES = (phi3_mini, gemma_2b, gemma2_2b, deepseek_7b, rwkv6_7b)
+_MODULES = (phi3_mini, gemma_2b, gemma2_2b, deepseek_7b, rwkv6_7b, phi3_5_moe_42b,
+            jamba_1_5_large)
 
 ARCH_IDS: tuple[str, ...] = tuple(m.ARCH_ID for m in _MODULES)
 _BY_ID = {m.ARCH_ID: m for m in _MODULES}
 
-# ids of ``repro.configs`` whose families (MoE, MLA, audio, VLM) wait for
+# ids of ``repro.configs`` whose families (MLA and MTP, audio, VLM) wait for
 # later slices
-NOT_PORTED = (
-    "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b", "musicgen-large",
-    "deepseek-v3-671b", "internvl2-2b",
-)
+NOT_PORTED = ("musicgen-large", "deepseek-v3-671b", "internvl2-2b")
 # what is missing, where only part of a family is ported
 _MISSING = {
-    "jamba-1.5-large-398b": "its MoE layers (repro's models/moe.py) are not ported; "
-                            "jamba_1_5_large.config_without_experts() is the ported "
-                            "form, with the dense MLP in place of the experts",
+    "deepseek-v3-671b": "its MLA attention and MTP head are not ported (its MoE "
+                        "layers are: repro_torch.models.moe)",
 }
 
 

@@ -8,7 +8,8 @@ from repro_torch.models.config import ModelConfig
 
 
 def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family variant: <=2 periods, d_model 256, 4 heads x 64.
+    """Reduced same-family variant: <=2 periods, d_model 256, 4 heads x 64,
+    4 experts.
 
     Keeps the pattern (so alternating structure is exercised) while
     shrinking every dimension for a CPU-speed forward step.  Same values as
@@ -32,6 +33,9 @@ def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
         kw["pattern"] = tuple(
             dataclasses.replace(s, window=None if s.window is None else 64)
             for s in cfg.pattern)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2), d_ff=256)
     if cfg.mamba is not None:
         kw["mamba"] = dataclasses.replace(cfg.mamba, d_state=8, chunk=32)
     if cfg.rwkv is not None:

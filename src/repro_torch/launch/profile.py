@@ -68,7 +68,7 @@ def build_layer_fns(cfg, seq_len: int, seed: int = 0, device="cuda", params=None
         def block_fn(x, lp=lp, spec=spec):
             B, S = x.shape[0], x.shape[1]
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-            return apply_layer(lp, x, positions, cfg, spec)
+            return apply_layer(lp, x, positions, cfg, spec)[0]
 
         fns.append(block_fn)
 

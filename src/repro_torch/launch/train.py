@@ -212,7 +212,8 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
     """Run the launcher.  ``after_step(step, ts, params, batch)``, when
     given, runs after each step, before the step's timing mark;
     ``on_session(session)`` runs once the membership session is built.
-    Returns the per-step losses, the timing, the step and the final state
+    Returns the per-step losses and ``ce`` / ``aux`` metrics, the timing,
+    the step and the final state
     (and the session and the opening auction's ``(report, bit_identical)``,
     on the ``--events`` / ``--portfolio`` path)."""
     args = _parse(argv)
@@ -309,6 +310,7 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
     ef = ts.init_ef() if bucketed else None
     held = None
     losses: list[float] = []
+    step_metrics: list[dict] = []                 # each step's ce and MoE aux loss
     # steady state starts after the warm-up round(s): the first step, and
     # at staleness 1 also the first full round (round 0 takes gradients only)
     n_warm = 2 if spec.staleness >= 1 else 1
@@ -331,6 +333,7 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
             params, opt_state, loss_t, metrics = ts.step_fn(params, opt_state, batch)
         loss = float(loss_t)                       # waits for the step
         losses.append(loss)
+        step_metrics.append({k: float(metrics[k]) for k in ("ce", "aux")})
         if after_step is not None:
             after_step(step, ts, params, batch)
         if step == n_warm - 1 and args.steps > n_warm:
@@ -350,10 +353,10 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
     _save_checkpoint(args, params)
     print(f"FINAL tok_s={steady:.1f} loss={loss:.4f}")
     print("done")
-    return {"losses": losses, "tok_s": steady, "timed_steps": timed,
-            "seconds": seconds, "ts": ts, "params": params, "opt_state": opt_state,
-            "ef": ef, "device": dev_name, "plan": plan, "lowered": lowered,
-            "profile": prof}
+    return {"losses": losses, "metrics": step_metrics, "tok_s": steady,
+            "timed_steps": timed, "seconds": seconds, "ts": ts, "params": params,
+            "opt_state": opt_state, "ef": ef, "device": dev_name, "plan": plan,
+            "lowered": lowered, "profile": prof}
 
 
 def _print_spec(spec) -> None:

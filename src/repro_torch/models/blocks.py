@@ -4,7 +4,10 @@ A model is ``n_periods`` repetitions of ``cfg.pattern``.  As in ``repro``,
 period parameters (and decode states) are stacked along a leading axis; the
 scan over periods becomes a Python loop over views ``leaf[i]`` of the
 stacked tensors, which copies nothing.  The attention, Mamba and RWKV-6
-mixers, the dense MLP and the RWKV channel mix are ported (not MoE).
+mixers, the dense MLP, the MoE layer and the RWKV channel mix are ported.
+As in ``repro``, the forward functions return ``(x, aux)``: the MoE layers'
+load-balance loss summed over layers and periods (a Python ``0.0`` where no
+layer is MoE, so a dense model runs no extra op).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from .attention import attention_decode, attention_forward, init_attention, init_attention_cache
 from .config import AttentionConfig, LayerSpec, ModelConfig
 from .mlp import init_mlp, mlp
+from .moe import init_moe, moe
 from .norms import init_rmsnorm, rmsnorm
 from .rwkv import (init_rwkv_channel_mix, init_rwkv_state, init_rwkv_time_mix,
                    rwkv_channel_mix, rwkv_channel_mix_decode, rwkv_time_mix,
@@ -33,9 +37,9 @@ def _attn_cfg(cfg: ModelConfig, spec: LayerSpec) -> AttentionConfig:
 
 def _check_spec(spec: LayerSpec) -> None:
     if spec.kind not in ("attn", "mamba", "rwkv") \
-            or spec.mlp not in ("mlp", "rwkv_cm", "none"):
+            or spec.mlp not in ("mlp", "moe", "rwkv_cm", "none"):
         raise NotImplementedError(f"layer {spec} is not ported yet "
-                                  "(only attn / mamba / rwkv + dense mlp / rwkv_cm)")
+                                  "(only attn / mamba / rwkv + dense mlp / moe / rwkv_cm)")
 
 
 def tree_index(tree, i: int):
@@ -68,6 +72,8 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device="cuda", lead: tupl
     if spec.mlp == "mlp":
         gated = cfg.act in ("silu", "gelu_tanh", "gelu")
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated, dtype, device, lead)
+    elif spec.mlp == "moe":
+        p["moe"] = init_moe(gen, d, cfg.moe, dtype, device, lead)
     elif spec.mlp == "rwkv_cm":
         p["rwkv_cm"] = init_rwkv_channel_mix(gen, d, cfg.d_ff, dtype, device, lead)
     if cfg.post_norms:
@@ -92,8 +98,10 @@ def init_periods(gen, cfg: ModelConfig, device="cuda"):
 
 
 def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
-    """x: (B, S, D) -> (B, S, D)."""
+    """x: (B, S, D) -> (x (B, S, D), aux): the MoE aux loss, 0.0 for a layer
+    without experts."""
     eps, zc = cfg.norm_eps, cfg.zero_centered_norm
+    aux = 0.0
     h = rmsnorm(params["norm1"], x, eps, zc)
     if spec.kind == "attn":
         h = attention_forward(params["attn"], h, positions, _attn_cfg(cfg, spec))
@@ -105,31 +113,38 @@ def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
         h = rmsnorm(params["norm1_post"], h, eps, zc)
     x = x + h.to(x.dtype)
     if spec.mlp == "none":
-        return x
+        return x, aux
     h = rmsnorm(params["norm2"], x, eps, zc)
     if spec.mlp == "mlp":
         h = mlp(params["mlp"], h, act=cfg.act)
+    elif spec.mlp == "moe":
+        h, aux = moe(params["moe"], h, cfg.moe)
     else:
         h = rwkv_channel_mix(params["rwkv_cm"], h)
     if cfg.post_norms:
         h = rmsnorm(params["norm2_post"], h, eps, zc)
-    return x + h.to(x.dtype)
+    return x + h.to(x.dtype), aux
 
 
 def apply_period(params, x, positions, cfg: ModelConfig):
+    """Returns (x, the period's summed aux loss)."""
+    aux = 0.0
     for p, spec in zip(params["layers"], cfg.pattern):
-        x = apply_layer(p, x, positions, cfg, spec)
-    return x
+        x, a = apply_layer(p, x, positions, cfg, spec)
+        aux = aux + a
+    return x, aux
 
 
 def apply_periods(stacked, x, positions, cfg: ModelConfig, remat: bool = False):
-    """Loop over the stacked periods (``repro``'s scan).  ``remat`` recomputes
-    each period in the backward (one ``torch.utils.checkpoint`` per period,
-    ``repro``'s ``jax.checkpoint(body)``); it applies only while autograd
-    records."""
+    """Loop over the stacked periods (``repro``'s scan); returns (x, total
+    aux).  ``remat`` recomputes each period in the backward (one
+    ``torch.utils.checkpoint`` per period, ``repro``'s
+    ``jax.checkpoint(body)``); it applies only while autograd records."""
+    aux = 0.0
     for i in range(cfg.n_periods):
-        x = apply_period_remat(tree_index(stacked, i), x, positions, cfg, remat)
-    return x
+        x, a = apply_period_remat(tree_index(stacked, i), x, positions, cfg, remat)
+        aux = aux + a
+    return x, aux
 
 
 def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool):
@@ -164,6 +179,8 @@ def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec):
         h = rmsnorm(params["norm2"], x, eps, zc)
         if spec.mlp == "mlp":
             h = mlp(params["mlp"], h, act=cfg.act)
+        elif spec.mlp == "moe":
+            h, _ = moe(params["moe"], h, cfg.moe)   # the aux loss is a training term
         else:
             h, new_state["cm"] = rwkv_channel_mix_decode(params["rwkv_cm"], h, state["cm"])
         if cfg.post_norms:

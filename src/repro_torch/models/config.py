@@ -1,8 +1,9 @@
-"""Model configuration schema (the attn / Mamba / RWKV subset of ``repro``'s).
+"""Model configuration schema (the attn / MoE / Mamba / RWKV subset of ``repro``'s).
 
-``LayerSpec``, ``ModelConfig``, ``AttentionConfig``, ``MambaConfig`` and
-``RWKVConfig`` carry the same field names and defaults as ``repro.models``.
-Left out: the fields of families this port does not have yet (MoE, MLA,
+``LayerSpec``, ``ModelConfig``, ``AttentionConfig``, ``MoEConfig``,
+``MambaConfig`` and ``RWKVConfig`` carry the same field names and defaults
+as ``repro.models``.
+Left out: the fields of families this port does not have yet (MLA,
 multi-codebook heads, frontend prefixes, MTP), which
 ``repro_torch.configs.get_config`` refuses, and
 ``AttentionConfig.q_chunk``/``kv_chunk``, the block sizes of ``repro``'s
@@ -25,6 +26,29 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     window: int | None = None          # sliding-window size (None = full)
     softcap: float | None = None       # attn logit softcapping (Gemma2)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Routed experts (``repro.models.moe.MoEConfig``); the layer is
+    :mod:`repro_torch.models.moe`."""
+
+    n_experts: int                 # routed experts (global)
+    top_k: int
+    d_ff: int                      # per-expert hidden dim (global)
+    n_shared_experts: int = 0      # DeepSeek shared expert(s)
+    score_fn: str = "softmax"      # "softmax" | "sigmoid"
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    act: str = "silu"
+    n_experts_global: int | None = None   # set by .local(); None => n_experts
+
+    def local(self, ep: int, tp: int) -> "MoEConfig":
+        assert self.n_experts % ep == 0, (self.n_experts, ep)
+        assert self.d_ff % tp == 0, (self.d_ff, tp)
+        return dataclasses.replace(
+            self, n_experts=self.n_experts // ep, d_ff=self.d_ff // tp,
+            n_experts_global=self.n_experts_global or self.n_experts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +90,7 @@ class LayerSpec:
     """One layer inside the repeating block pattern.
 
     kind:   'attn' | 'mamba' | 'rwkv' (the mixers ported so far)
-    mlp:    'mlp' (dense, uses cfg.act/d_ff) | 'rwkv_cm' | 'none'
+    mlp:    'mlp' (dense, uses cfg.act/d_ff) | 'moe' | 'rwkv_cm' | 'none'
     window: sliding-window override for this layer (None = cfg default).
     """
 
@@ -84,6 +108,7 @@ class ModelConfig:
     vocab_size: int
     d_ff: int
     attn: AttentionConfig | None = None
+    moe: MoEConfig | None = None
     mamba: MambaConfig | None = None
     rwkv: RWKVConfig | None = None
     pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
@@ -135,14 +160,22 @@ class ModelConfig:
             n += 5 * d * self.rwkv.mix_lora * 2
         if spec.mlp == "mlp":
             n += 3 * d * self.d_ff
+        elif spec.mlp == "moe" and self.moe is not None:
+            n += d * self.moe.n_experts
+            n += self.moe.n_experts * 3 * d * self.moe.d_ff
+            n += self.moe.n_shared_experts * 3 * d * self.moe.d_ff
         elif spec.mlp == "rwkv_cm":
             n += d * self.d_ff + self.d_ff * d + d * d
         return n + 2 * d  # norms
 
     def layer_active_param_count(self, spec: LayerSpec) -> int:
-        """Params touched per token: every param, since no MoE layer is
-        ported (``repro`` counts only the routed experts there)."""
-        return self.layer_param_count(spec)
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if spec.mlp != "moe" or self.moe is None:
+            return self.layer_param_count(spec)
+        n = self.layer_param_count(spec)
+        n -= self.moe.n_experts * 3 * self.d_model * self.moe.d_ff
+        n += (self.moe.top_k + self.moe.n_shared_experts) * 3 * self.d_model * self.moe.d_ff
+        return n
 
     def param_count(self) -> int:
         n = sum(self.layer_param_count(s) for s in self.pattern) * self.n_periods

@@ -2,7 +2,8 @@
 next-token loss.
 
 The text-LM subset of ``repro.models.model`` (single codebook, no frontend
-prefix, no MTP head), with ``repro``'s parameter names and layout.  The
+prefix, no MTP head), with ``repro``'s parameter names and layout; the MoE
+layers' aux loss is added to the loss as there.  The
 loss is computed in sequence chunks, so the (B, S, V) logits exist one
 chunk at a time.
 """
@@ -54,12 +55,22 @@ def head_logits(params, h, cfg: ModelConfig):
 
 
 def model_forward(params, tokens, cfg: ModelConfig, remat: bool = True):
-    """Backbone forward.  tokens (B, S).  Returns (h (B, S, D), positions).
-    ``remat`` checkpoints each period while autograd records."""
+    """Backbone forward.  tokens (B, S).  Returns (h (B, S, D), aux_loss,
+    positions): ``aux_loss`` is the MoE layers' summed load-balance loss (a
+    Python ``0.0`` without MoE layers).  ``remat`` checkpoints each period
+    while autograd records."""
     x = embed_tokens(params, tokens, cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return apply_periods(params["periods"], x, positions, cfg, remat), positions
+    h, aux = apply_periods(params["periods"], x, positions, cfg, remat)
+    return h, aux, positions
+
+
+def aux_tensor(aux, device) -> torch.Tensor:
+    """A summed aux loss as a float32 scalar tensor on ``device``."""
+    if isinstance(aux, torch.Tensor):
+        return aux
+    return torch.full((), float(aux), dtype=torch.float32, device=device)
 
 
 def _ce_chunk(hi, head_w, ti, mi, softcap):
@@ -106,8 +117,9 @@ def chunked_ce_loss(h, head_w, targets, mask, softcap=None, chunk: int = 2048):
 def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, ce_chunk: int = 2048):
     """Next-token LM loss.  batch: {"tokens" (B, S), optional "mask" (B, S)}.
 
-    Returns (loss, metrics).  The phi3 path of ``repro.models.model.loss_fn``:
-    multi-codebook tokens and frontend prefixes are refused.
+    Returns (loss, metrics): the mean cross entropy plus the MoE aux loss,
+    as ``repro.models.model.loss_fn`` returns it; multi-codebook tokens and
+    frontend prefixes are refused.
     """
     if "prefix" in batch:
         raise NotImplementedError("frontend prefix embeddings are not ported yet")
@@ -115,14 +127,14 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, ce_chunk: int =
     if tokens.ndim != 2:
         raise NotImplementedError(f"tokens {tuple(tokens.shape)}: multi-codebook "
                                   "batches are not ported yet")
-    h, _ = model_forward(params, tokens, cfg, remat)
+    h, aux, _ = model_forward(params, tokens, cfg, remat)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps, cfg.zero_centered_norm)
     mask = batch.get("mask", torch.ones_like(tokens))[:, 1:].float()
     total, count, correct = chunked_ce_loss(h[:, :-1], _head_weight(params, cfg),
                                             tokens[:, 1:], mask, cfg.logit_softcap,
                                             ce_chunk)
     loss = total / torch.clamp(count, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)   # no MoE aux here
+    aux = aux_tensor(aux, h.device)
     metrics = {"ce": loss, "aux": aux, "acc": correct / torch.clamp(count, min=1.0),
                "tokens": count}
     return loss + aux, metrics

@@ -19,8 +19,9 @@ the one card:
   tick (``scan_ticks(P, M)`` ticks; at tick t stage p runs micro-batch
   t - p): the bubble ticks that the SPMD scan computes and masks are
   skipped; their outputs never reached ``outs`` and their aux was masked,
-  so nothing changes.  The attn + MLP models ported so far have no aux
-  loss.
+  so nothing changes.  The MoE layers' aux loss is summed over the real
+  (stage, micro-batch) pairs, as ``repro`` sums it over its unmasked ticks
+  and real periods.
 * **Backward.**  Autograd's reverse of this forward, as ``jax.grad`` of the
   scan is.  Remat is one ``torch.utils.checkpoint(..., use_reentrant=False)``
   per period, as ``jax.checkpoint(body)`` is in ``repro``'s stage scan.
@@ -52,7 +53,9 @@ the one card:
 * **Loss.**  ``repro`` redistributes the last stage's outputs so each stage
   computes the head and cross entropy on M / P micro-batches, then sums
   over stages; on one card the head runs once over all M.  The sums are the
-  same up to float reassociation.
+  same up to float reassociation.  The loss is ``ce + aux``, the aux summed
+  over stages and divided by M (``repro``'s ``dp_shards * M``, with one
+  data shard).
 
 Tensor parallelism, vocab padding and heterogeneous per-shard allocations
 are not ported yet.
@@ -69,7 +72,7 @@ from repro_torch.distributed.mesh import MeshPlan
 from repro_torch.kernels.quant_transfer import roundtrip
 from repro_torch.models.blocks import apply_period_remat, tree_index
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import _head_weight, chunked_ce_loss, embed_tokens
+from repro_torch.models.model import _head_weight, aux_tensor, chunked_ce_loss, embed_tokens
 from repro_torch.models.norms import rmsnorm
 from repro_torch.optim import tree_leaves, tree_map
 
@@ -81,10 +84,12 @@ from repro_torch.optim import tree_leaves, tree_map
 
 def _stage_fn(period_params, x, positions, cfg: ModelConfig, remat: bool):
     """Apply one stage's periods in order (``period_params``: one tree per
-    period).  The ported layer kinds carry no aux loss."""
+    period).  Returns (x, the periods' summed aux loss)."""
+    aux = 0.0
     for pp in period_params:
-        x = apply_period_remat(tree_map(_leaf_per_use, pp), x, positions, cfg, remat)
-    return x
+        x, a = apply_period_remat(tree_map(_leaf_per_use, pp), x, positions, cfg, remat)
+        aux = aux + a
+    return x, aux
 
 
 def _leaf_per_use(t):
@@ -152,8 +157,9 @@ def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
     """Run M micro-batches through P virtual stages.
 
     period_params: list of per-period param trees; stage p owns the rows
-    ``ranges[p]`` = ``[i_p, j_p)``.  x_micro: (M, mb, S, D).  Returns outs
-    (M, mb, S, D).  ``double_buffer`` runs each boundary round trip on a
+    ``ranges[p]`` = ``[i_p, j_p)``.  x_micro: (M, mb, S, D).  Returns (outs
+    (M, mb, S, D), the aux loss summed over every stage and micro-batch
+    computed).  ``double_buffer`` runs each boundary round trip on a
     second stream (module docstring); the values are the same.
     """
     M, P = x_micro.shape[0], len(ranges)
@@ -187,6 +193,7 @@ def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
 
     inflight: dict[int, tuple] = {}               # micro-batch -> its hop to the next stage
     outs: list = [None] * M
+    aux = 0.0
     for t in range(scan_ticks(P, M)):
         for p in range(P):
             m = t - p
@@ -194,12 +201,13 @@ def pipeline_apply(period_params, x_micro, positions, cfg: ModelConfig,
                 continue                         # bubble tick: nothing to compute
             inp = x_micro[m] if p == 0 else arrive(inflight.pop(m))
             i, j = ranges[p]
-            out = _stage_fn(period_params[i:j], inp, positions, cfg, remat)
+            out, a = _stage_fn(period_params[i:j], inp, positions, cfg, remat)
+            aux = aux + a
             if p < P - 1:
                 inflight[m] = send(out)
             else:
                 outs[m] = out
-    return torch.stack(outs)
+    return torch.stack(outs), aux
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +281,9 @@ def spmd_loss_fn(spec: TrainSpec):
         x = embed_tokens(params, tokens, cfg)
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(mb, S)
         periods = period_list(params["periods"])
-        outs = pipeline_apply(periods, x.reshape(M, mb, S, cfg.d_model), positions,
-                              cfg, spec.ranges, spec.remat, spec.compress, spec.quant_tile,
-                              spec.double_buffer)
+        outs, aux = pipeline_apply(periods, x.reshape(M, mb, S, cfg.d_model), positions,
+                                   cfg, spec.ranges, spec.remat, spec.compress,
+                                   spec.quant_tile, spec.double_buffer)
         h = rmsnorm(params["final_norm"], outs.reshape(B, S, cfg.d_model),
                     cfg.norm_eps, cfg.zero_centered_norm)
         tgt = tokens[:, 1:]
@@ -283,7 +291,8 @@ def spmd_loss_fn(spec: TrainSpec):
         loss_sum, cnt_sum, _ = chunked_ce_loss(h[:, :-1], _head_weight(params, cfg), tgt,
                                                msk, cfg.logit_softcap, spec.ce_chunk)
         ce = loss_sum / torch.clamp(cnt_sum, min=1.0)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE aux, no MTP
-        return ce, {"ce": ce, "aux": zero, "mtp": zero, "tokens": cnt_sum}
+        aux = aux_tensor(aux / M, x.device)       # summed over stages, mean over M
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)  # no MTP
+        return ce + aux, {"ce": ce, "aux": aux, "mtp": zero, "tokens": cnt_sum}
 
     return fn

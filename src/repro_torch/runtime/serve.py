@@ -42,6 +42,7 @@ from repro_torch.models.model import (decode_step, embed_tokens, head_logits,
                                       model_forward)
 from repro_torch.optim import tree_leaves, tree_map
 
+from .continuous import refuse_moe
 from .pipeline import stage_ranges
 
 
@@ -197,7 +198,9 @@ def build_slot_serve_step(cfg: ModelConfig, *, cache_len: int, shard_alloc,
     a CPU tensor): its rows have every state leaf zeroed in place before the
     step.  Padded rows return logits of exactly 0.  ``model_axis`` (default ``stage``, or 1) is split
     into ``stage`` x tp as ``repro``'s mesh is; tp is a label on one card.
+    A config with MoE layers is refused (``continuous.refuse_moe``).
     """
+    refuse_moe(cfg, "build_slot_serve_step")
     if model_axis is None:
         model_axis = stage or 1
     if stage is None:
@@ -243,7 +246,7 @@ def build_prefill_step(cfg: ModelConfig, *, batch_global: int,
 
     @torch.inference_mode()
     def step_fn(params, batch):
-        h, _ = model_forward(params, batch["tokens"], cfg)
+        h, _, _ = model_forward(params, batch["tokens"], cfg)
         return head_logits(params, h[:, -1], cfg)
 
     return ServeStep(spec=spec, step_fn=step_fn)

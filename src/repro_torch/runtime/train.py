@@ -147,16 +147,18 @@ def tree_paths(tree, prefix=()) -> list:
 
 def _leaf_axes(path) -> set:
     """Mesh axes in a leaf's PartitionSpec under ``repro``'s training layout
-    (``distributed/sharding.py``), for the attn + dense-MLP leaves."""
+    (``distributed/sharding.py``), for the attn, dense-MLP and MoE leaves."""
     names = [k for k in path if isinstance(k, str)]
     name, parent = names[-1], (names[-2] if len(names) > 1 else "")
     if name in ("embed", "head"):
         return {"tp"}                                # vocab-parallel
     used = {"stage"} if "periods" in names else set()
-    if name in ("wq", "wk", "wv", "wo") or (parent == "mlp" and
-                                            name in ("gate", "up", "down")):
+    if parent == "experts":
+        used |= {"data", "tp"}                       # expert-parallel (EP = DP), d_ff on tp
+    elif name in ("wq", "wk", "wv", "wo") or (parent in ("mlp", "shared") and
+                                              name in ("gate", "up", "down")):
         used.add("tp")                               # column / row parallel
-    return used                                      # norms: replicated
+    return used                                      # norms, router: replicated
 
 
 def _free_axes(path) -> tuple:

@@ -564,12 +564,50 @@ def test_apply_layer_gradients_reach_every_parameter(dev):
         p = {k: {n: t.to(device).requires_grad_(True) for n, t in sub.items()}
              for k, sub in params.items()}
         leaves = [t for sub in p.values() for t in sub.values()]
-        out = apply_layer(p, x.to(device), pos.to(device), cfg, spec)
+        out, _ = apply_layer(p, x.to(device), pos.to(device), cfg, spec)
         res[str(device)] = torch.autograd.grad(out.square().mean(), leaves,
                                                allow_unused=True)
     for a, b in zip(res["cpu"], res[str(dev)]):
         assert b is not None
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_layer_card_matches_cpu(dev):
+    """The MoE layer at smoke width (4 experts x 256, top 2, drops at the
+    published capacity factor) on the card against the CPU: the same
+    routing, the output, the aux loss (1e-6) and every gradient (1e-4 of
+    the leaf's largest value: an expert's weight gradient sums up to 81
+    rows of products of order 1, so single entries cancel); E
+    ``fused_swiglu`` launches a forward and E ``swiglu_bwd`` a backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as tmoe
+
+    cfg = get_smoke_config("phi3.5-moe-42b-a6.6b")
+    mc, E, D = cfg.moe, cfg.moe.n_experts, cfg.d_model
+    params = tmoe.init_moe(torch.Generator().manual_seed(0), D, mc, device="cpu")
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy((rng.standard_normal((2, 64, D)) + 1.5 * rng.standard_normal(D))
+                         .astype(np.float32))
+    res = {}
+    for device in ("cpu", dev):
+        p = {k: ({n: t.to(device).requires_grad_(True) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(device).requires_grad_(True))
+             for k, v in params.items()}
+        leaves = [p["router"], *p["experts"].values()]
+        r = tmoe.route(p, x.to(device).reshape(-1, D), mc, E)
+        keep, _ = tmoe.dispatch_slots(r.top_e, tmoe.capacity(mc, 128, E), E)
+        ops.reset_launches()
+        out, aux = tmoe.moe(p, x.to(device), mc)
+        grads = torch.autograd.grad(out.square().sum() + aux, leaves)
+        res[str(device)] = (r.top_e.cpu(), keep.cpu(), out.detach().cpu(),
+                            float(aux.detach()), [g.cpu() for g in grads], dict(ops.LAUNCHES))
+    (e0, k0, o0, a0, g0, _), (e1, k1, o1, a1, g1, n1) = res["cpu"], res[str(dev)]
+    assert torch.equal(e0, e1) and torch.equal(k0, k1) and not bool(k0.all())
+    torch.testing.assert_close(o1, o0, atol=1e-4, rtol=1e-4)
+    assert abs(a1 - a0) <= 1e-6
+    for a, b in zip(g1, g0):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    assert n1["fused_swiglu"] == E and n1["swiglu_bwd"] == E
 
 
 def test_int8_ef_train_step_card_matches_cpu(dev):

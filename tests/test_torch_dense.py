@@ -200,7 +200,7 @@ def test_dense_model_matches_repro(which, request):
     assert cfg.tie_embeddings and "head" not in params
     tokens = torch.from_numpy(ref.tokens)
     with torch.no_grad():
-        h, _ = model_forward(params, tokens, cfg, remat=False)
+        h, _, _ = model_forward(params, tokens, cfg, remat=False)
         logits = head_logits(params, h, cfg)
     assert _rel(logits, ref.logits) <= 1e-4
 

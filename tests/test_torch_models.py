@@ -55,13 +55,15 @@ def _port_attn_cfg(a) -> AttentionConfig:
 CONFIG_CASES = [pytest.param("phi3-mini-3.8b", "smoke", id="smoke"),
                 pytest.param("phi3-mini-3.8b", "full", id="full")] + [
     pytest.param(arch, size, id=f"{arch}-{size}")
-    for arch in ("gemma-2b", "gemma2-2b", "deepseek-7b") for size in ("smoke", "full")]
+    for arch in ("gemma-2b", "gemma2-2b", "deepseek-7b", "phi3.5-moe-42b-a6.6b",
+                 "jamba-1.5-large-398b") for size in ("smoke", "full")]
 
 
 @pytest.mark.parametrize("arch,arch_fn", CONFIG_CASES)
 def test_config_matches_repro(arch, arch_fn):
-    """The port's config of each dense arch equals repro's, field for field,
-    at smoke and full size."""
+    """The port's config of each dense and MoE arch equals repro's, field for
+    field (the family configs as dicts), at smoke and full size; so do
+    param_count() and each layer's active parameter count."""
     from repro.configs import get_config as jax_get_config
     j = (jax_smoke_config if arch_fn == "smoke" else jax_get_config)(arch)
     t = (get_smoke_config if arch_fn == "smoke" else get_config)(arch)
@@ -71,14 +73,19 @@ def test_config_matches_repro(arch, arch_fn):
         elif f.name == "pattern":
             assert [dataclasses.asdict(s) for s in j.pattern] == \
                    [dataclasses.asdict(s) for s in t.pattern]
+        elif dataclasses.is_dataclass(getattr(t, f.name)):
+            assert dataclasses.asdict(getattr(j, f.name)) == \
+                   dataclasses.asdict(getattr(t, f.name)), f.name
         else:
             assert getattr(j, f.name) == getattr(t, f.name), f.name
     assert t.param_count() == j.param_count()
+    for js, ts in zip(j.pattern, t.pattern):
+        assert t.layer_active_param_count(ts) == j.layer_active_param_count(js)
 
 
 def test_unported_arch_is_refused():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("phi3.5-moe-42b-a6.6b")
+        get_config("musicgen-large")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -357,7 +357,7 @@ def test_layer_matches_repro(norms):
     xj, xt = _pair(rng, (B, S, jcfg.d_model))
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
     yj, _ = jblocks.apply_layer(pj, xj, jnp.asarray(pos), jcfg, spec_j)
-    _close(tblocks.apply_layer(pt, xt, torch.from_numpy(pos.copy()), tcfg, spec_t), yj)
+    _close(tblocks.apply_layer(pt, xt, torch.from_numpy(pos.copy()), tcfg, spec_t)[0], yj)
 
     sj = jblocks.init_layer_state(B, 8, jcfg, spec_j, jnp.float32)
     st = tblocks.init_layer_state(B, 8, tcfg, spec_t, torch.float32, "cpu")
@@ -419,7 +419,7 @@ def test_decode_matches_forward():
     params = init_model(torch.Generator().manual_seed(1), cfg, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(2))
     with torch.inference_mode():
-        h, _ = model_forward(params, tokens, cfg)
+        h, _, _ = model_forward(params, tokens, cfg)
         full = head_logits(params, h, cfg)
         states = init_decode_states(B, S, cfg, "cpu")
         for t in range(S):
