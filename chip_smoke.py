@@ -214,8 +214,8 @@ layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
    every kernel of its paths at their shapes against its plain version,
    timed beside the plain version, the library call and the bound:
    ``fused_swiglu`` at one expert (W 4096 x 6400; x (641, 4096), a
-   prefill's or training micro-batch's capacity buffer, and (2, 4096), a
-   decode step's), ``swiglu_bwd`` at (641, 6400), the flash forward and
+   training micro-batch's capacity buffer, and (2, 4096), a decode
+   step's), ``swiglu_bwd`` at (641, 6400), the flash forward and
    backward at the prefill (8, 512) and the micro-batch (2, 2048),
    ``flash_decode`` at a decode step, the wire kernels at a stage boundary
    and the largest gradient bucket;
@@ -237,6 +237,22 @@ layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
    --n-micro 4 --global-batch 8 --seq 2048 --compress int8 --bucket-mb 256
    --no-error-feedback``, 1 warm-up + 2 steps: each step's ``ce`` and
    ``aux`` (finite, aux > 0), launch counts, ms/step, peak memory;
+11e. MoE beyond lockstep, each MoE layer routing one data shard's rows of
+   one decode group as a token set: (a) a 2-layer cut at capacity factor
+   1.25 through the slot step (shard_alloc (3, 1) at stages 1 and 2, (4, 2)
+   at stage 2 in 2 groups), card vs CPU row for row with equal routing and
+   dropped pairs (some must drop), padded rows exactly 0, each step's
+   launches; at factor 64 the engine's tokens under the slot list reversed
+   and another timing; (b) ``launch.serve --continuous`` (5b (c)'s cell)
+   at 5 layers, the most the launcher's modeled cluster admits: launch
+   counts, the engine and draw ms/step, tok/s, token percentiles, the busy
+   share; then lockstep ``--devices 8`` on that cut (2 data shards) and
+   the CUDA kernels a step with 2 token sets against 1;
+11f. the paper's loop on phi3.5-moe at 2 layers (``launch.profile
+   --n-layers 2`` at seq 2048 on 4 virtual devices of 40 GB; ``launch.train
+   --plan --profile``, 1 + 2 steps): the split, the predicted round split
+   into execution and AllReduce beside the measured ms/step, launch counts
+   of every step, the peak memory;
 9. reads device times at the training shape from profiler traces (last,
    because tracing slows later launches): the flash forward beside SDPA's
    forward, the flash backward alone, and the port's forward with the
@@ -252,7 +268,8 @@ layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
    failure-recovery training, portfolio (6e (a), (b)), Jamba serving,
    rwkv6-7b serving, the three dense serving paths, gemma2-2b training and
    planned training, gemma-2b training (10d-10f), phi3.5-moe serving and
-   training (11c, 11d), phase 10a's rows under ``dense`` and phase 11's
+   training (11c, 11d), continuous and lockstep ``--devices 8`` serving
+   and planned training (11e (b), 11f), phase 10a's rows under ``dense`` and phase 11's
    under ``phi35_moe``) and,
    last, ``{"ok": true, ...}``.
 
@@ -263,6 +280,7 @@ it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -1567,11 +1585,13 @@ CONTINUOUS_ARGS = ["--continuous", "--devices", "8", "--requests", "12", "--prom
                    "--gen", "32", "--max-slots", "4"]
 
 
-def staggered_logits(torch, ops, ss, params, tokens, dev, per_step: dict):
-    """``tokens`` (4, SLOT_STEPS) through the slot step ``ss`` on the
-    staggered schedule (idle slots reset each wall step).  Returns {(slot,
-    position): logits row} and the largest |logit| of a padded row; checks
-    each step's launch counts against ``per_step``."""
+def staggered_logits(torch, ops, ss, params, tokens, dev, per_step: dict,
+                     delay=SLOT_DELAY):
+    """``tokens`` (slots, SLOT_STEPS) through the slot step ``ss`` on the
+    staggered schedule, slot s admitted at wall step ``delay[s]`` (idle
+    slots reset each wall step).  Returns {(slot, position): logits row}
+    and the largest |logit| of a padded row; checks each step's launch
+    counts against ``per_step``."""
     from repro_torch.runtime.continuous import slot_rows
     from repro_torch.runtime.serve import prepare_serve_states
 
@@ -1580,11 +1600,11 @@ def staggered_logits(torch, ops, ss, params, tokens, dev, per_step: dict):
     pads = [r for r in range(B) if r not in rows]
     states = prepare_serve_states(cfg, ss.spec.plan, B, SLOT_CACHE, dev)
     out, pad_max = {}, 0.0
-    for w in range(SLOT_STEPS + max(SLOT_DELAY)):
+    for w in range(SLOT_STEPS + max(delay)):
         tok, pos, reset = ([0] * B, [0] * B, [False] * B)
         live = {}
         for s, row in enumerate(rows):
-            p = w - SLOT_DELAY[s]
+            p = w - delay[s]
             if not 0 <= p < SLOT_STEPS:
                 reset[row] = True
                 continue
@@ -1659,7 +1679,8 @@ def profile_engine(torch, engine, B, rows, cache_len, dev, n_steps=8):
                   f"{e.count // n_steps:5d} launches/step  {e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_us / n_steps / 1e3 if busy_us > 0 else None,
             "h2d_ms": h2d_ms, "d2h_ms": d2h_ms, "sample_ms": sample_ms,
-            "logits_bytes": logits.nbytes}
+            "logits_bytes": logits.nbytes,
+            "kernels_per_step": sum(e.count for e in kernels) / n_steps}
 
 
 def check_continuous_kernels(torch, ops, dev) -> None:
@@ -1667,7 +1688,7 @@ def check_continuous_kernels(torch, ops, dev) -> None:
     shapes phase 5b gives them: the launcher's engine (8 rows, cache 48, 4
     live rows mid-cache, 4 padded at length 1) and the slot step of (a)
     (6 rows, cache 64, 2 padded); the MLP at 6 rows and at (b)'s groups of
-    3."""
+    2 (a row of each shard)."""
     H, D, Fd, W = 32, 96, 8192, 3072
     g = torch.Generator(device=dev).manual_seed(17)
 
@@ -1681,7 +1702,7 @@ def check_continuous_kernels(torch, ops, dev) -> None:
         err = max_err(ops.flash_decode_op(q, k, v, ln), ops.plain_flash_decode(q, k, v, ln))
         check(err, TOL_FP32, f"flash_decode B={B} H={H} cache {S} lengths {lens}")
     w = (rnd(W, Fd, scale=W ** -0.5), rnd(W, Fd, scale=W ** -0.5), rnd(Fd, W, scale=Fd ** -0.5))
-    for T in (6, 3):
+    for T in (6, 2):
         x = rnd(T, W, scale=1.0)
         err = max_err(ops.fused_swiglu_op(x, *w), ops.plain_fused_swiglu(x, *w))
         check(err, TOL_FP32, f"fused_swiglu T={T} D={W} F={Fd}")
@@ -1730,14 +1751,16 @@ def phase_continuous(torch, ops, dev, card: str, lockstep_ms: float) -> dict:
     if pad_max != 0.0:
         raise AssertionError(f"padded slot rows carry logits up to {pad_max}")
 
-    print("phase 5b (b): the same schedule on 2 and 4 virtual stages, 2 groups")
+    print("phase 5b (b): the same schedule on 2 and 4 virtual stages, 3 groups (each "
+          "shard's 3 rows one at a time)")
     for stage in (2, 4):
         vs = build_slot_serve_step(cfg, cache_len=SLOT_CACHE, shard_alloc=SLOT_ALLOC,
-                                   stage=stage, n_groups=2)
+                                   stage=stage, n_groups=3)
+        G = vs.spec.groups
         got, pad_max = staggered_logits(torch, ops, vs, params, tokens, dev,
-                                        dict(none, flash_decode=2 * L, fused_swiglu=2 * L))
+                                        dict(none, flash_decode=G * L, fused_swiglu=G * L))
         err = max(float((got[k] - base[k]).abs().max()) for k in base) / scale
-        check(err, TOL_SLOT_LOGITS, f"stage {stage} x 2 groups vs stage 1, "
+        check(err, TOL_SLOT_LOGITS, f"stage {stage} x {G} groups vs stage 1, "
               "max|diff| / max|logit|")
         if pad_max != 0.0:
             raise AssertionError(f"stage {stage}: padded slot rows carry logits {pad_max}")
@@ -2126,14 +2149,16 @@ def trace_cuda(torch, fn, n: int):
     return (total_us / n / 1e3 if total_us > 0 else None), kernels
 
 
-def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
+def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8, ss=None):
     """Device kernel time per decode step from a ``torch.profiler`` trace of
-    ``n_steps`` steps at half the cache length (after 2 untraced ones);
-    prints the top kernels.  Returns (that time, or None when the trace
-    holds no device time; the trace's CUDA kernel rows)."""
+    ``n_steps`` steps at half the cache length (after 2 untraced ones) of
+    the lockstep step ``ss`` (default ``build_serve_step``'s, one data
+    shard); prints the top kernels.  Returns (that time, or None when the
+    trace holds no device time; the trace's CUDA kernel rows)."""
     from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
 
-    ss = build_serve_step(cfg, batch_global=B, cache_len=cache_len)
+    if ss is None:
+        ss = build_serve_step(cfg, batch_global=B, cache_len=cache_len)
     states = prepare_serve_states(cfg, ss.spec.plan, B, cache_len, dev)
     start = cache_len // 2            # mid-run cache length
     for pos in range(start - 2, start):
@@ -2158,13 +2183,16 @@ def profile_decode(torch, cfg, params, token, B, cache_len, dev, n_steps=8):
 
 
 def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
-                     label: str = "6c") -> dict:
-    """Full width: ``launch.profile`` measures ``arch`` into an artifact (4
-    virtual devices of 20 GB), ``launch.train --plan --profile`` plans it
-    (``plan_hpp``), lowers it and trains 4 steps (1 warm-up) on the
-    planner's period split, with the launch counts of every step and of one
-    forward-only evaluation held against what the plan implies; the plan's
-    prediction beside the measured step."""
+                     label: str = "6c", n_layers: int | None = None, seq: int = 256,
+                     steps: int = 4, mem_gb: float = 20, batches: str = "1,2,4,8") -> dict:
+    """Full width: ``launch.profile`` measures ``arch`` (cut to its first
+    ``n_layers`` layers when given) into an artifact (4 virtual devices of
+    ``mem_gb`` GB), ``launch.train --plan
+    --profile`` plans it (``plan_hpp``), lowers it and trains ``steps``
+    steps (1 warm-up) on the planner's period split, with the launch counts
+    of every step and of one forward-only evaluation held against what the
+    plan implies (an MoE layer runs each expert where a dense layer runs
+    one MLP); the plan's prediction beside the measured step."""
     from repro_torch.configs import get_config
     from repro_torch.core.simulator import simulate
     from repro_torch.kernels.flash_attention import FWD_ROUTES, reset_fwd_routes
@@ -2173,21 +2201,27 @@ def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
     from repro_torch.optim import tree_leaves
 
     cfg = get_config(arch)
-    L, M, B, S, steps, n_dev = cfg.n_layers, 4, 8, 256, 4, 4
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    L, M, B, S, n_dev, tag = cfg.n_layers, 4, 8, seq, 4, label
+    E = cfg.moe.n_experts if any(sp.mlp == "moe" for sp in cfg.pattern) else 1
     out_dir = ROOT / "profiles"
     out_dir.mkdir(exist_ok=True)
     path = str(out_dir / f"phase{label}_profile.json")
     print(f"phase {label} (a): profile full-width {arch} on the card")
     t0 = time.perf_counter()
-    profiler_cli.main(["--arch", cfg.name, "--seq", str(S), "--batches", "1,2,4,8",
-                       "--replicate", str(n_dev), "--mem-gb", "20", "-o", path])
-    print(f"  profiled in {time.perf_counter() - t0:.1f}s; card {card}")
+    cut = ["--n-layers", str(L)] if n_layers else []
+    profiler_cli.main(["--arch", cfg.name, *cut, "--seq", str(S), "--batches", batches,
+                       "--replicate", str(n_dev), "--mem-gb", str(mem_gb), "-o", path])
+    print(f"  profiled {L} layers in {time.perf_counter() - t0:.1f}s ({n_dev} virtual "
+          f"devices of {mem_gb} GB); card {card}")
     torch.cuda.empty_cache()
 
     print(f"phase {label} (b): plan, lower and train through launch.train --plan --profile")
     argv = ["--plan", "--profile", path, "--devices", str(n_dev), "--global-batch", str(B),
             "--n-micro", str(M), "--seq", str(S), "--compress", "int8", "--bucket-mb", "256",
             "--no-error-feedback", "--steps", str(steps), "--log-every", "1"]
+    argv += cut
     marks, peaks, loss_after = [], [], {}
 
     def after_step(step, ts, params, batch):
@@ -2218,12 +2252,9 @@ def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
 
     P = lowered.stage
     hops, nb = M * (P - 1), len(ts.buckets)
-    per_step = {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
-                "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
-                "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
-                "mamba_scan": 0, "rwkv6_wkv": 0}
+    per_step = _train_counts(L, M, P, nb, E)
     per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
-                "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
+                "fused_swiglu": E * L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
                 "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
     prev = {k: 0 for k in launches}
     for label, snap in marks:
@@ -2251,9 +2282,13 @@ def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
     print(f"  plan: {P} stages, periods {lowered.stage_periods}, groups "
           f"{lowered.device_groups}, alloc {lowered.micro_alloc}, K_p {lowered.warmup}; "
           f"Eq. 3 bounds {[round(bounds[d] / 1e9, 3) for d in sorted(bounds)]} GB")
-    print(f"plan_train {cfg.name} full width fp32 from the measured profile: "
+    print(f"plan_train ({tag}) {cfg.name} full width fp32, {L} layers, seq {S}, from the "
+          f"measured profile: "
           f"predicted round latency {plan.latency * 1e3:.1f} ms ({n_dev} devices in "
-          f"parallel), simulated {sim.makespan * 1e3:.1f} ms, summed device work "
+          f"parallel), simulated {sim.makespan * 1e3:.1f} ms (execution phase "
+          f"{sim.exec_span_s * 1e3:.1f} ms, stage AllReduce charged "
+          f"{sim.charged_allreduce_s * 1e3:.1f} ms over the artifact's modeled "
+          f"{prof.cluster.bandwidth * 8 / 1e6:.0f} Mbps link), summed device work "
           f"{work_s * 1e3:.1f} ms (one card runs it in turn); measured {ms_step:.1f} ms/step "
           f"over {res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; peak memory "
           f"{peak / 1e9:.3f} GB; losses {[round(x, 6) for x in losses]}, "
@@ -2263,7 +2298,8 @@ def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
     torch.cuda.empty_cache()
     return {"launches": launches, "ms_per_step": ms_step, "peak_gb": peak / 1e9,
             "predicted_ms": plan.latency * 1e3, "work_ms": work_s * 1e3,
-            "stage_periods": lowered.stage_periods}
+            "stage_periods": lowered.stage_periods, "per_step": per_step,
+            "exec_ms": sim.exec_span_s * 1e3, "allreduce_ms": sim.charged_allreduce_s * 1e3}
 
 
 def phase_split_parity(torch, dev) -> None:
@@ -3793,6 +3829,10 @@ MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 # parameters, 45.8 GB with gradients and AdamW's moments); a 2-layer cut for
 # prefill against decode
 MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = 12, 2, 2
+# 11e (b)'s depth: the continuous launcher plans on its modeled Jetson
+# cluster (8 GB a device, 4 a data shard at --devices 8), which admits 5
+# layers of 5.29 GB and no more (plan_serve raises AllocationError at 6)
+MOE_CONTINUOUS_LAYERS = 5
 # 11c's prefill 8 x 512 is timed this many times after a warm-up at that
 # shape (the last the counted run of the path): median and range
 MOE_PREFILL_TIMED = 4
@@ -3823,9 +3863,10 @@ def phase_moe_kernels(torch, ops, F, dev, entries: dict) -> None:
     on the card, timed beside their bounds, plain versions and library
     calls, into each kernel's entry as ``phi35_moe`` rows: ``fused_swiglu``
     at one expert (W 4096 x 6400, silu) on x (2, 4096), a decode step's
-    capacity buffer at batch 8, and x (641, 4096), a full buffer of the
-    prefill (8 x 512 tokens at top 2 of 16 experts, factor 1.25) or of a
-    training micro-batch (2 x 2048); ``swiglu_bwd`` on that buffer's
+    capacity buffer at batch 8, and x (641, 4096), a full buffer of a
+    training micro-batch (2 x 2048 tokens at top 2 of 16 experts, factor
+    1.25; the prefill's 8 x 512 runs 2 such sets of 321 rows, 642 a call);
+    ``swiglu_bwd`` on that buffer's
     (641, 6400) products; the flash forward and backward at ``MOE_ATTN``;
     ``flash_decode`` at ``MOE_DECODE_SHAPES``; ``quantize_tiles`` and
     ``dequantize_tiles`` (int8, bitwise) at a stage boundary (2, 2048,
@@ -4022,8 +4063,9 @@ def phase_moe_serve(torch, ops, dev, card: str) -> dict:
                            generator=torch.Generator(device=dev).manual_seed(5))
     B, S = 2, 256
     E, k = cfg.moe.n_experts, cfg.moe.top_k
-    caps = (tmoe.capacity(cfg.moe, B * S, E), tmoe.capacity(cfg.moe, B, E))
-    if caps[0] < B * S or caps[1] < B:
+    # the prefill routes each of its micro-batches (1 x 256 tokens) as a set
+    caps = (tmoe.capacity(cfg.moe, S, E), tmoe.capacity(cfg.moe, B, E))
+    if caps[0] < S or caps[1] < B:
         raise AssertionError(f"capacities {caps} can drop pairs")
     want = build_prefill_step(cfg, batch_global=B, seq_len=S).step_fn(
         params, {"tokens": tokens[:B, :S]})
@@ -4098,7 +4140,8 @@ def phase_moe_serve(torch, ops, dev, card: str) -> dict:
     print(f"serve phi3.5-moe-42b-a6.6b full width fp32, {L} of 32 layers: prefill {B}x{S} "
           f"median {statistics.median(prefill_ms):.3f} ms of {len(prefill_ms)} calls after a "
           f"warm-up ({', '.join(f'{x:.3f}' for x in prefill_ms)} in order; capacity "
-          f"{tmoe.capacity(cfg.moe, B * S, E)} rows an expert); decode {step_ms:.3f} ms/step "
+          f"2 x {tmoe.capacity(cfg.moe, B // 2 * S, E)} rows an expert: a set per micro-batch "
+          f"of 4 x 512); decode {step_ms:.3f} ms/step "
           f"over {steps} steps (batch {batch}, cache {prompt + gen}, capacity "
           f"{tmoe.capacity(cfg.moe, batch, E)}), {E * L} fused_swiglu and {L} flash_decode "
           f"launches a step; {res['tok_per_s']:.1f} tok/s; peak memory {peak / 1e9:.3f} GB; "
@@ -4121,7 +4164,8 @@ def phase_moe_serve(torch, ops, dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_ms": prefill_ms, "step_ms": step_ms,
-            "peak_gb": peak / 1e9, "busy_ms": busy_ms, "shares": shares}
+            "peak_gb": peak / 1e9, "busy_ms": busy_ms, "shares": shares,
+            "kernels_per_step": sum(e.count for e in dec_kernels) / n_steps}
 
 
 def phase_moe_train(torch, ops, dev, card: str) -> dict:
@@ -4175,6 +4219,226 @@ def phase_moe_train(torch, ops, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "ms_per_step": ms_step, "peak_gb": max(peaks) / 1e9}
 
+
+# 11e (a): the slot step's token sets card vs CPU at the published capacity
+# factor: (shard_alloc, stage, n_groups, the slots' admission steps).  At
+# (3, 1) a shard's 3 rows are one set (3 rows do not split into 2 groups);
+# at (4, 2) and 2 stages each shard's rows are cut into 2 groups of 2, a set
+# each: C = 1 row an expert either way, so pairs drop
+MOE_SLOT_CASES = (((3, 1), 1, None, SLOT_DELAY), ((3, 1), 2, None, SLOT_DELAY),
+                  ((4, 2), 2, None, (0, 1, 2, 1, 0, 2)))
+
+
+@contextlib.contextmanager
+def moe_dispatches():
+    """Record every MoE call's (top_e, keep) on the host while it lasts
+    (``models.moe``'s dispatch functions wrapped; each record waits for the
+    card, so only untimed checks use it)."""
+    from repro_torch.models import moe as tmoe
+
+    seen = []
+    real = tmoe.dispatch_slots
+
+    def recording(top_e, *args):
+        keep, slot = real(top_e, *args)
+        seen.append((top_e.cpu(), keep.cpu()))
+        return keep, slot
+
+    tmoe.dispatch_slots = recording
+    try:
+        yield seen
+    finally:
+        tmoe.dispatch_slots = real
+
+
+def _fake_timer(dt: float):
+    t = [0.0]
+
+    def timer():
+        t[0] += dt / 2
+        return t[0]
+    return timer
+
+
+def phase_moe_slots(torch, ops, dev, card: str) -> None:
+    """11e (a): phi3.5-moe at 2 layers, full width, capacity factor 1.25,
+    through ``build_slot_serve_step`` on ``MOE_SLOT_CASES``' staggered
+    admission: the card against the port on the CPU row for row, with the
+    same routing and the same dropped pairs (some must drop), padded rows
+    exactly 0, each step's launches (every expert's ``fused_swiglu`` and
+    one ``flash_decode`` a layer and group, whatever the shard count); the
+    2-stage run at (3, 1) against the 1-stage one on the card.  Then at
+    factor 64, where nothing drops, the engine's tokens under the slot list
+    reversed and another timing are the same (5b (d))."""
+    from repro_torch.models.model import init_model
+    from repro_torch.runtime.continuous import (ContinuousBatcher, Request,
+                                                engine_from_serve_step, slot_rows)
+    from repro_torch.runtime.serve import build_slot_serve_step
+
+    cpu = torch.device("cpu")
+    cfg = _moe_cut(MOE_PARITY_LAYERS)
+    L, E, V = cfg.n_layers, cfg.moe.n_experts, cfg.vocab_size
+    none = {name: 0 for name in ops.LAUNCHES}
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    p_cpu = _tree_to(params, cpu)
+    gen = torch.Generator().manual_seed(5)
+    tokens = {alloc: torch.randint(0, V, (sum(alloc), SLOT_STEPS), generator=gen)
+              for alloc in {c[0] for c in MOE_SLOT_CASES}}
+    on_card, dropped_all = {}, 0
+    for alloc, stage, n_groups, delay in MOE_SLOT_CASES:
+        ss = build_slot_serve_step(cfg, cache_len=SLOT_CACHE, shard_alloc=alloc, stage=stage,
+                                   n_groups=n_groups)
+        G = ss.spec.groups
+        sets = f"{len(alloc)} token sets of {max(alloc) // G} rows a group"
+        per_step = dict(none, flash_decode=G * L, fused_swiglu=G * E * L)
+        with moe_dispatches() as seen:
+            got, pad_max = staggered_logits(torch, ops, ss, params, tokens[alloc], dev,
+                                            per_step, delay)
+        dropped = sum(int((~keep).sum()) for _, keep in seen)
+        pairs = sum(keep.numel() for _, keep in seen)
+        dropped_all += dropped
+        what = f"shard_alloc {alloc}, stage {stage}, {G} group(s), {sets}"
+        print(f"  {what}: {dropped} of {pairs} (token, expert) pairs dropped on the card; "
+              f"padded rows max |logit| {pad_max} (must be 0); launches a step {per_step}")
+        if pad_max != 0.0:
+            raise AssertionError(f"{what}: padded slot rows carry logits up to {pad_max}")
+        if not all(bool(torch.isfinite(r).all()) for r in got.values()):
+            raise AssertionError(f"{what}: non-finite logits on the card")
+        if (alloc, 1) in on_card:
+            base = on_card[(alloc, 1)]
+            scale = max(float(r.abs().max()) for r in base.values())
+            err = max(float((got[k] - base[k]).abs().max()) for k in base) / scale
+            check(err, TOL_SLOT_LOGITS, f"{what} vs stage 1 on the card, max|diff| / max|logit|")
+            continue
+        on_card[(alloc, stage)] = got
+        with moe_dispatches() as seen_cpu:
+            want, _ = staggered_logits(torch, ops, ss, p_cpu, tokens[alloc], cpu, none, delay)
+        same = len(seen) == len(seen_cpu) and all(
+            torch.equal(a, b) and torch.equal(k, m) for (a, k), (b, m) in zip(seen, seen_cpu))
+        print(f"  {what}: routing and dropped pairs card vs CPU "
+              f"{'equal' if same else 'DIFFERENT'} ({len(seen)} MoE calls)")
+        if not same:
+            raise AssertionError(f"{what}: the card routes or drops other pairs than the CPU")
+        err = max(max_err(got[k].cpu(), want[k]) for k in got)
+        check(err, TOL_LOGITS, f"{what}: {len(got)} (slot, position) logits rows card vs CPU")
+    if dropped_all == 0:
+        raise AssertionError("no pair dropped: the token sets were not exercised")
+    del p_cpu, on_card
+    gc.collect()
+
+    print("  factor 64: the engine's tokens under other slot lists and timings")
+    cfg64 = _moe_cut(MOE_PARITY_LAYERS, capacity_factor=64.0)
+    reqs = [Request(rid=i, arrival=0.01 * i, prompt_token=(7919 * i + 3) % V, n_tokens=6)
+            for i in range(6)]
+    rows = slot_rows(SLOT_ALLOC)
+    runs = []
+    for slots, dt in ((rows, 0.01), (rows[::-1], 0.5)):
+        ss = build_slot_serve_step(cfg64, cache_len=SLOT_CACHE, shard_alloc=SLOT_ALLOC)
+        bat = ContinuousBatcher(engine_from_serve_step(ss, params, dev), slots=slots,
+                                batch=ss.spec.batch_global, cache_len=SLOT_CACHE, seed=0,
+                                timer=_fake_timer(dt))
+        with moe_dispatches() as seen:
+            done = bat.run(reqs)
+        runs.append(({c.rid: c.tokens for c in done}, bat.steps,
+                     sum(int((~keep).sum()) for _, keep in seen)))
+    (first, s1, d1), (again, s2, d2) = runs
+    print(f"  {len(first)} requests: {s1} and {s2} engine steps, {d1 + d2} pairs dropped; "
+          f"token streams {'identical' if first == again else 'DIFFERENT'}")
+    if d1 + d2 or first != again or len(first) != len(reqs):
+        raise AssertionError("at factor 64 the tokens depend on the slots or the timing")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_continuous(torch, ops, dev, card: str) -> dict:
+    """11e (b): ``launch.serve --continuous`` (5b (c)'s cell) on phi3.5-moe
+    at ``MOE_CONTINUOUS_LAYERS``: exact launch counts, the engine and draw
+    ms/step, tok/s and token percentiles, the engine step's device-busy
+    share and CUDA kernels a step; then the lockstep launcher at
+    ``--devices 8`` on the same cut (2 data shards, a token set each): its
+    ms/step, and a traced step's busy time and kernels beside the same
+    weights' lockstep step with one data shard (one set).  Returns the
+    launches of each launcher run."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.runtime.continuous import engine_from_serve_step
+
+    L = MOE_CONTINUOUS_LAYERS
+    cut = ["--arch", MOE_ARCH, "--n-layers", str(L)]
+    none = {name: 0 for name in ops.LAUNCHES}
+    print("phase 11e (b): python -m repro_torch.launch.serve " + " ".join(CONTINUOUS_ARGS + cut))
+    ops.reset_launches()
+    res = launcher.main(CONTINUOUS_ARGS + cut)
+    launches = dict(ops.LAUNCHES)
+    ss, plan, done, reqs = res["slot_step"], res["plan"], res["completions"], res["requests"]
+    cfg = ss.spec.cfg
+    E, G = cfg.moe.n_experts, ss.spec.groups
+    calls = res["warmup_calls"] + res["steps"]
+    expect = dict(none, flash_decode=G * L * calls, fused_swiglu=G * E * L * calls)
+    print(f"  launches {launches} (expected {expect}: {res['warmup_calls']} warm-up calls + "
+          f"{res['steps']} engine steps, {G} group(s), {ss.spec.plan.data} token sets a group)")
+    if launches != expect:
+        raise AssertionError(f"phi3.5-moe continuous launch counts {launches} != {expect}")
+    gen = int(CONTINUOUS_ARGS[CONTINUOUS_ARGS.index("--gen") + 1])
+    if len(done) != len(reqs) or any(len(c.tokens) != gen for c in done):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests completed")
+    if any(not 0 <= t < cfg.vocab_size for c in done for t in c.tokens):
+        raise AssertionError("a served token lies outside the vocabulary")
+    step_ms = sum(res["step_seconds"]) / res["steps"] * 1e3
+    draw_ms = sum(res["draw_seconds"]) / res["steps"] * 1e3
+    p50, p95, p99 = (v * 1e3 for v in res["latency_pct"])
+    print(f"continuous serve phi3.5-moe-42b-a6.6b full width fp32, {L} of 32 layers: plan "
+          f"stage {plan.stage} tp {plan.tp} alloc {plan.shard_alloc}; {len(done)} requests / "
+          f"{sum(len(c.tokens) for c in done)} tokens in {res['steps']} engine steps; engine "
+          f"{step_ms:.3f} ms/step (probe {res['probe_step_s'] * 1e3:.3f}), host draws "
+          f"{draw_ms:.3f} ms/step; offered {res['rate']:.1f} tok/s, served "
+          f"{res['tok_per_s']:.1f} tok/s; token latency p50/p95/p99 {p50:.3f}/{p95:.3f}/"
+          f"{p99:.3f} ms; {G * E} fused_swiglu and {G} flash_decode launches a layer and "
+          f"step; card {card}")
+    engine = engine_from_serve_step(ss, res["params"], dev)
+    prof = profile_engine(torch, engine, ss.spec.batch_global, res["slots"],
+                          ss.spec.cache_len, dev)
+    busy = prof["busy_ms"]
+    print(f"  engine step {prof['wall_ms']:.3f} ms wall, "
+          + (f"device busy {busy:.3f} ms ({busy / prof['wall_ms']:.1%}; idle "
+             f"{1 - busy / prof['wall_ms']:.1%}), " if busy is not None else "")
+          + f"{prof['kernels_per_step']:.0f} CUDA kernels a step; card {card}")
+    del res, engine, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = cut + ["--devices", "8", "--batch", "8", "--prompt-len", "16", "--gen", "32"]
+    print("phase 11e (b): python -m repro_torch.launch.serve " + " ".join(argv))
+    ops.reset_launches()
+    res = launcher.main(argv)
+    lock = dict(ops.LAUNCHES)
+    ls = res["serve_step"]
+    G, steps = ls.spec.groups, res["steps"]
+    want = dict(none, flash_decode=G * L * steps, fused_swiglu=G * E * L * steps)
+    print(f"  launches {lock} (expected {want}: {steps} steps, {ls.spec.plan.data} data shards, "
+          f"a token set each)")
+    if lock != want:
+        raise AssertionError(f"phi3.5-moe lockstep --devices 8 launch counts {lock} != {want}")
+    toks = res["tokens"]
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("lockstep --devices 8 drew a token outside the vocabulary")
+    lock_ms = res["seconds"] / steps * 1e3
+    token = torch.from_numpy(toks[0]).to(dev)
+    traced = {}
+    for name, step in (("2 data shards", ls), ("1 data shard", None)):
+        busy, kernels = profile_decode(torch, cfg, res["params"], token, 8, 48, dev, ss=step)
+        traced[name] = (busy, sum(e.count for e in kernels) / 8)
+    print(f"lockstep serve phi3.5-moe {L} layers --devices 8 (data {ls.spec.plan.data}, "
+          f"stage {ls.spec.plan.stage}): {lock_ms:.3f} ms/step over {steps} steps, "
+          f"{res['tok_per_s']:.1f} tok/s; traced steps, device busy and CUDA kernels a step: "
+          + "; ".join(f"{name} (a token set each) "
+                      + (f"{busy:.3f} ms, " if busy else "") + f"{n:.0f} kernels"
+                      for name, (busy, n) in traced.items())
+          + f"; card {card}")
+    del res, ls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"continuous": launches, "lockstep_dp2": lock}
 
 def _tree_to(tree, device):
     if isinstance(tree, dict):
@@ -4294,6 +4558,13 @@ def main() -> int:
     moe_serve = phase_moe_serve(torch, ops, dev, card)
     print(f"phase 11d: train phi3.5-moe at full width, {MOE_TRAIN_LAYERS} layers, uniform split")
     moe_train = phase_moe_train(torch, ops, dev, card)
+    print("phase 11e (a): phi3.5-moe per slot, 2 layers, card vs CPU: a token set per shard "
+          "and group")
+    phase_moe_slots(torch, ops, dev, card)
+    moe_cont = phase_moe_continuous(torch, ops, dev, card)
+    moe_plan = phase_plan_train(torch, ops, dev, card, arch=MOE_ARCH, label="11f",
+                                n_layers=MOE_TRAIN_LAYERS, seq=2048, steps=3, mem_gb=40,
+                                batches="1,2,4")
     print("phase 9: flash attention's device times at the training shape")
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 9b: the Mamba scan's device time at the Jamba prefill's shape")
@@ -4318,7 +4589,10 @@ def main() -> int:
                    "gemma_train": gemma_train["launches"][e["name"]],
                    "gemma2_plan_train": dense_plan["launches"][e["name"]],
                    "phi35_moe_serve": moe_serve["launches"][e["name"]],
-                   "phi35_moe_train": moe_train["launches"][e["name"]]}
+                   "phi35_moe_train": moe_train["launches"][e["name"]],
+                   "phi35_moe_continuous": moe_cont["continuous"][e["name"]],
+                   "phi35_moe_lockstep_dp2": moe_cont["lockstep_dp2"][e["name"]],
+                   "phi35_moe_plan_train": moe_plan["launches"][e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")
         e["launches"] = sum(by_path.values())

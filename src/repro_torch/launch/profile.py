@@ -189,6 +189,9 @@ def main(argv=None) -> str:
     ap.add_argument("--arch", default="phi3-mini-3.8b")
     ap.add_argument("--smoke", action="store_true",
                     help="profile the reduced same-family config")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to its first N layers (widths unchanged), "
+                         "as launch.train's --n-layers")
     ap.add_argument("--quick", action="store_true",
                     help="CI-sized run: --smoke, seq 64, batches 1,2,4, "
                          "1 repeat, 4 virtual devices")
@@ -229,6 +232,8 @@ def main(argv=None) -> str:
 
     smoke = args.smoke or args.quick
     cfg = get_smoke_config(args.arch) if smoke else get_config(args.arch)
+    if args.n_layers:
+        cfg = cfg.replace(n_layers=args.n_layers)
     print(f"profiling {cfg.name} (smoke={smoke}) seq={seq} "
           f"batches={batches} repeats={repeats} replicate={replicate}")
     mp = measure_model(cfg, seq, batches, repeats, replicate=replicate,

@@ -5,17 +5,25 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b   # on the card
 
+``--devices N`` lays out ``repro``'s mesh, all virtual on the one card: a
+data axis of max(1, N // 4) and a model axis of the rest.  Both paths
+build their step on it.  The batch is cut into the data shards, and the
+model axis into stages and tp.
+
 The lockstep path of ``repro.launch.serve``: random weights from seed 0,
 a random prompt fed one token per decode step, then ``--gen`` tokens
 sampled from ``softmax(logits / T)`` with a seeded ``torch.Generator`` on
-the device (not ``repro``'s JAX draws, so the tokens differ).
+the device (not ``repro``'s JAX draws, so the tokens differ).  Its step
+is ``build_serve_step`` at ``pick_serve_stage``'s stage count on the
+model axis, with the data axis: an MoE layer routes each data shard's
+rows of a decode group as ``repro``'s step does.  ``--batch`` must split
+into the data shards.
 
 Continuous batching (``--continuous``, ``repro``'s ``run_continuous``):
 ``plan_serve`` picks the stage count and the uneven slot split across data
 shards against a *modeled* edge cluster (Jetson NX / TX2 shard blocks,
-``Profile.analytic``), ``build_slot_serve_step`` lowers it onto the card
-(``--devices N``: a data axis of max(1, N // 4) and a model axis of the
-rest, all virtual), and an open-loop Poisson stream is served through
+``Profile.analytic``), ``build_slot_serve_step`` lowers it onto the
+card's virtual mesh, and an open-loop Poisson stream is served through
 ``ContinuousBatcher``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --devices 8 \\
@@ -27,7 +35,8 @@ The plan's latencies are the Jetson model's; the engine step, tok/s and
 token-latency percentiles are measured where the step runs, on a clock that
 advances by each engine step and the host draws after it.  Runs on
 ``cuda`` unless ``--device cpu`` is given; without a card it stops rather
-than running on the CPU.  ``--seq-shard`` needs a data axis and is refused.
+than running on the CPU.  ``--seq-shard`` (the cache sharded over the data
+axis) is refused.
 """
 
 from __future__ import annotations
@@ -43,6 +52,9 @@ def _parse(argv):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="phi3-mini-3.8b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to its first N layers (widths unchanged), "
+                         "as launch.train's --n-layers")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
@@ -51,8 +63,8 @@ def _parse(argv):
                     help="'cuda' (default) or 'cpu' for the plain versions")
     ap.add_argument("--seq-shard", action="store_true", help="not ported yet")
     ap.add_argument("--devices", type=int, default=1,
-                    help="--continuous: virtual devices, a data axis of "
-                         "max(1, N // 4) and the model axis the rest")
+                    help="virtual devices of the mesh, lockstep and --continuous: "
+                         "a data axis of max(1, N // 4) and the model axis the rest")
     ap.add_argument("--continuous", action="store_true",
                     help="planner-driven continuous batching "
                          "(plan_serve -> slot step -> Poisson stream)")
@@ -70,16 +82,27 @@ def _parse(argv):
     args = ap.parse_args(argv)
     if args.seq_shard:
         ap.error("--seq-shard is not ported yet: it shards the cache over a data "
-                 "axis, which the port does not have")
+                 "axis of devices, and the port's data shards are row blocks on one card")
     if args.prompt_len < 1 or args.gen < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
+    if args.n_layers is not None and args.n_layers < 1:
+        ap.error("--n-layers must be >= 1")
     if args.devices < 1 or args.requests < 1 or args.max_slots < 1 \
             or not 0 < args.util or args.rate < 0:
         ap.error("--devices, --requests and --max-slots must be >= 1, --util > 0, "
                  "--rate >= 0")
     if args.temperature <= 0:
         ap.error("--temperature must be > 0")
+    if not args.continuous and args.batch % mesh_axes(args.devices)[0]:
+        ap.error(f"--batch {args.batch} does not split into the "
+                 f"{mesh_axes(args.devices)[0]} data shards of --devices {args.devices}")
     return args
+
+
+def mesh_axes(devices: int) -> tuple[int, int]:
+    """``repro``'s launcher mesh on ``devices`` devices: (data, model)."""
+    data = max(1, devices // 4)
+    return data, devices // data
 
 
 PROBE_STEPS = 5          # --continuous: engine steps timed for the offered load
@@ -90,16 +113,29 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def lockstep_serve_step(cfg, *, devices: int, batch: int, cache_len: int):
+    """The lockstep step on ``repro``'s launcher mesh for ``devices``
+    devices: the data axis, and ``pick_serve_stage``'s stages on the model
+    axis (``repro``'s ``build_serve_step`` defaults)."""
+    from repro_torch.runtime.serve import build_serve_step, pick_serve_stage
+
+    data, model_axis = mesh_axes(devices)
+    return build_serve_step(cfg, batch_global=batch, cache_len=cache_len,
+                            stage=pick_serve_stage(cfg, model_axis), data=data,
+                            model_axis=model_axis)
+
+
 def lockstep_decode(cfg, params, *, batch: int, prompt_len: int, gen: int,
-                    temperature: float, device) -> dict:
+                    temperature: float, device, step=None) -> dict:
     """Decode ``batch`` random prompts (numpy seed 0) in lockstep on
-    ``params``' device: one prompt token per step, then ``gen`` tokens
-    sampled from ``softmax(logits / T)``.  Returns the timing and the
-    (T, B) token array."""
-    from repro_torch.runtime.serve import build_serve_step, prepare_serve_states
+    ``params``' device, on the serve step ``step`` (default
+    :func:`lockstep_serve_step` on one device): one prompt token per step,
+    then ``gen`` tokens sampled from ``softmax(logits / T)``.  Returns the
+    timing, the step and the (T, B) token array."""
+    from repro_torch.runtime.serve import prepare_serve_states
 
     cache_len = prompt_len + gen
-    ss = build_serve_step(cfg, batch_global=batch, cache_len=cache_len)
+    ss = step or lockstep_serve_step(cfg, devices=1, batch=batch, cache_len=cache_len)
     states = prepare_serve_states(cfg, ss.spec.plan, batch, cache_len, device)
     rng = np.random.RandomState(0)
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size,
@@ -122,7 +158,7 @@ def lockstep_decode(cfg, params, *, batch: int, prompt_len: int, gen: int,
     dt = time.perf_counter() - t0
     gen_tokens = gen * batch
     return {"steps": cache_len - 1, "seconds": dt, "tokens": torch.stack(seqs).cpu().numpy(),
-            "tok_per_s": gen_tokens / dt}
+            "tok_per_s": gen_tokens / dt, "serve_step": ss}
 
 
 def serve_plan(cfg, *, dp: int, model_axis: int, cache_len: int, max_slots: int,
@@ -170,8 +206,7 @@ def run_continuous(args, cfg, device, dev_name: str) -> dict:
                                                 slot_rows)
     from repro_torch.runtime.serve import build_slot_serve_step
 
-    dp = max(1, args.devices // 4)
-    model_axis = args.devices // dp
+    dp, model_axis = mesh_axes(args.devices)
     cache_len = args.prompt_len + args.gen
     plan = serve_plan(cfg, dp=dp, model_axis=model_axis, cache_len=cache_len,
                       max_slots=args.max_slots, util=args.util)
@@ -244,8 +279,9 @@ def run_continuous(args, cfg, device, dev_name: str) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Run the launcher; returns the timing and the (T, B) token array
-    (lockstep), or ``run_continuous``'s dict (``--continuous``)."""
+    """Run the launcher; returns the timing, the step, the weights and the
+    (T, B) token array (lockstep), or ``run_continuous``'s dict
+    (``--continuous``)."""
     args = _parse(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -253,27 +289,33 @@ def main(argv=None) -> dict:
                          "pass --device cpu to run the plain versions on the CPU")
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.distributed.mesh import SINGLE
     from repro_torch.models.model import init_model
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.n_layers:
+        cfg = cfg.replace(n_layers=args.n_layers)
     cache_len = args.prompt_len + args.gen
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     if args.continuous:
         return run_continuous(args, cfg, device, dev_name)
-    print(f"arch={cfg.name} serve plan: stage={SINGLE.stage} tp={SINGLE.tp} "
+    ss = lockstep_serve_step(cfg, devices=args.devices, batch=args.batch,
+                             cache_len=cache_len)
+    plan = ss.spec.plan
+    data = f" data={plan.data}" if plan.data > 1 else ""
+    print(f"arch={cfg.name} serve plan: stage={plan.stage} tp={plan.tp}{data} "
           f"cache={cache_len} device={dev_name}")
 
     params = init_model(torch.Generator(device=device).manual_seed(0), cfg, device)
     res = lockstep_decode(cfg, params, batch=args.batch, prompt_len=args.prompt_len,
-                          gen=args.gen, temperature=args.temperature, device=device)
+                          gen=args.gen, temperature=args.temperature, device=device,
+                          step=ss)
     dt, steps = res["seconds"], res["steps"]
     print(f"decoded {args.gen} steps x batch {args.batch} in {dt:.3f}s "
           f"({res['tok_per_s']:.1f} tok/s on {dev_name}; "
           f"{steps} decode steps, {dt / steps * 1e3:.3f} ms/step)")
     print("sample sequence 0:", res["tokens"][:24, 0], "...")
     print("done")
-    return {**res, "device": dev_name}
+    return {**res, "params": params, "device": dev_name}
 
 
 if __name__ == "__main__":

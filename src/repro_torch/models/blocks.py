@@ -97,9 +97,10 @@ def init_periods(gen, cfg: ModelConfig, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
+def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec, sets: int = 1):
     """x: (B, S, D) -> (x (B, S, D), aux): the MoE aux loss, 0.0 for a layer
-    without experts."""
+    without experts.  ``sets``: the number of equal MoE token sets of the
+    B * S tokens (``models.moe.moe``)."""
     eps, zc = cfg.norm_eps, cfg.zero_centered_norm
     aux = 0.0
     h = rmsnorm(params["norm1"], x, eps, zc)
@@ -118,7 +119,7 @@ def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
     if spec.mlp == "mlp":
         h = mlp(params["mlp"], h, act=cfg.act)
     elif spec.mlp == "moe":
-        h, aux = moe(params["moe"], h, cfg.moe)
+        h, aux = moe(params["moe"], h, cfg.moe, sets)
     else:
         h = rwkv_channel_mix(params["rwkv_cm"], h)
     if cfg.post_norms:
@@ -126,32 +127,33 @@ def apply_layer(params, x, positions, cfg: ModelConfig, spec: LayerSpec):
     return x + h.to(x.dtype), aux
 
 
-def apply_period(params, x, positions, cfg: ModelConfig):
+def apply_period(params, x, positions, cfg: ModelConfig, sets: int = 1):
     """Returns (x, the period's summed aux loss)."""
     aux = 0.0
     for p, spec in zip(params["layers"], cfg.pattern):
-        x, a = apply_layer(p, x, positions, cfg, spec)
+        x, a = apply_layer(p, x, positions, cfg, spec, sets)
         aux = aux + a
     return x, aux
 
 
-def apply_periods(stacked, x, positions, cfg: ModelConfig, remat: bool = False):
+def apply_periods(stacked, x, positions, cfg: ModelConfig, remat: bool = False,
+                  sets: int = 1):
     """Loop over the stacked periods (``repro``'s scan); returns (x, total
     aux).  ``remat`` recomputes each period in the backward (one
     ``torch.utils.checkpoint`` per period, ``repro``'s
     ``jax.checkpoint(body)``); it applies only while autograd records."""
     aux = 0.0
     for i in range(cfg.n_periods):
-        x, a = apply_period_remat(tree_index(stacked, i), x, positions, cfg, remat)
+        x, a = apply_period_remat(tree_index(stacked, i), x, positions, cfg, remat, sets)
         aux = aux + a
     return x, aux
 
 
-def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool):
+def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool, sets: int = 1):
     """:func:`apply_period`, checkpointed when ``remat`` and grad mode is on."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(apply_period, params, x, positions, cfg, use_reentrant=False)
-    return apply_period(params, x, positions, cfg)
+        return checkpoint(apply_period, params, x, positions, cfg, sets, use_reentrant=False)
+    return apply_period(params, x, positions, cfg, sets)
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +161,11 @@ def apply_period_remat(params, x, positions, cfg: ModelConfig, remat: bool):
 # ---------------------------------------------------------------------------
 
 
-def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec):
+def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec,
+                 sets: int = 1):
     """x: (B, D) one position.  Returns (x, state); the KV cache, Mamba or
-    RWKV states in ``state`` are updated in place."""
+    RWKV states in ``state`` are updated in place.  ``sets``: the number of
+    equal MoE token sets of the B rows (``models.moe.moe``)."""
     eps, zc = cfg.norm_eps, cfg.zero_centered_norm
     h = rmsnorm(params["norm1"], x, eps, zc)
     if spec.kind == "attn":
@@ -180,7 +184,7 @@ def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec):
         if spec.mlp == "mlp":
             h = mlp(params["mlp"], h, act=cfg.act)
         elif spec.mlp == "moe":
-            h, _ = moe(params["moe"], h, cfg.moe)   # the aux loss is a training term
+            h, _ = moe(params["moe"], h, cfg.moe, sets)   # the aux loss is a training term
         else:
             h, new_state["cm"] = rwkv_channel_mix_decode(params["rwkv_cm"], h, state["cm"])
         if cfg.post_norms:
@@ -189,20 +193,20 @@ def decode_layer(params, x, position, state, cfg: ModelConfig, spec: LayerSpec):
     return x, new_state
 
 
-def decode_period(params, x, position, states, cfg: ModelConfig):
+def decode_period(params, x, position, states, cfg: ModelConfig, sets: int = 1):
     new_states = []
     for p, spec, st in zip(params["layers"], cfg.pattern, states):
-        x, ns = decode_layer(p, x, position, st, cfg, spec)
+        x, ns = decode_layer(p, x, position, st, cfg, spec, sets)
         new_states.append(ns)
     return x, tuple(new_states)
 
 
-def decode_periods(stacked, x, position, states, cfg: ModelConfig):
+def decode_periods(stacked, x, position, states, cfg: ModelConfig, sets: int = 1):
     """Decode over stacked periods; ``states`` is stacked the same way and
     updated in place (the returned tree holds the same tensors)."""
     for i in range(cfg.n_periods):
         x, _ = decode_period(tree_index(stacked, i), x, position,
-                             tree_index(states, i), cfg)
+                             tree_index(states, i), cfg, sets)
     return x, states
 
 

@@ -54,15 +54,16 @@ def head_logits(params, h, cfg: ModelConfig):
     return logits
 
 
-def model_forward(params, tokens, cfg: ModelConfig, remat: bool = True):
+def model_forward(params, tokens, cfg: ModelConfig, remat: bool = True, sets: int = 1):
     """Backbone forward.  tokens (B, S).  Returns (h (B, S, D), aux_loss,
     positions): ``aux_loss`` is the MoE layers' summed load-balance loss (a
     Python ``0.0`` without MoE layers).  ``remat`` checkpoints each period
-    while autograd records."""
+    while autograd records.  ``sets``: the number of equal MoE token sets
+    of the B * S tokens, batch-major (``models.moe.moe``)."""
     x = embed_tokens(params, tokens, cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    h, aux = apply_periods(params["periods"], x, positions, cfg, remat)
+    h, aux = apply_periods(params["periods"], x, positions, cfg, remat, sets)
     return h, aux, positions
 
 
@@ -144,13 +145,15 @@ def init_decode_states(batch: int, max_len: int, cfg: ModelConfig, device="cuda"
     return init_period_states(batch, max_len, cfg, cfg.cdtype, device)
 
 
-def decode_step(params, token, position, states, cfg: ModelConfig):
+def decode_step(params, token, position, states, cfg: ModelConfig, sets: int = 1):
     """One decode step.
 
     token: (B,) int; position: Python int (lockstep) or (B,) int32 tensor.
     Returns (logits (B, V) float32, states); the caches, Mamba and RWKV
-    states are updated in place.
+    states are updated in place.  ``sets``: the number of equal MoE token
+    sets of the B rows (``models.moe.moe``; default all rows one set, as
+    ``repro``'s mesh-free ``decode_step``).
     """
     x = embed_tokens(params, token, cfg)
-    h, states = decode_periods(params["periods"], x, position, states, cfg)
+    h, states = decode_periods(params["periods"], x, position, states, cfg, sets)
     return head_logits(params, h, cfg), states

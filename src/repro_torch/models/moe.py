@@ -24,8 +24,20 @@ parallelism).
 
 The capacity couples rows: C depends on the call's token count T, so a
 prefill and a lockstep decode of the same tokens agree only where nothing
-drops.  ``repro``'s expert-parallel exchange (``ctx.ep_axis``, the two
-``all_to_all``) and tensor parallelism are not ported.
+drops.
+
+**Token sets.**  ``repro`` routes the tokens of one data shard's one
+pipeline group on their own: each shard dispatches its rows into its own
+``(E, C_s, D)`` buffer, and the ``all_to_all`` over ``ctx.ep_axis`` hands
+each expert the rows of every shard.  ``moe(..., sets=n)`` does the same
+on one card for n equal consecutive row blocks of the call (``repro``'s
+sets in one call are equal: shards are padded to one size, groups and
+micro-batches split evenly): each block is routed, given its own capacity
+and dispatched into its own buffer; the buffers are concatenated along the
+slot axis, so each expert is still one ``fused_swiglu`` launch, on its
+``n * C_s`` rows, whatever n is.  The aux loss is the sum of the sets'
+own, as ``repro`` sums its shards' before dividing by ``dp_shards * M``.
+Expert parallelism across cards and tensor parallelism are not ported.
 
 ``torch.topk`` and ``lax.top_k`` both sort in descending order; their order
 on exactly tied scores may differ.
@@ -78,16 +90,19 @@ def _one_hot(idx, n: int):
     return idx[..., None] == torch.arange(n, device=idx.device)
 
 
-def route(params, x2d, cfg: MoEConfig, e_global: int) -> Routing:
-    """x2d: (T, D) -> the routing decision and the aux loss."""
+def route(params, x2d, cfg: MoEConfig, e_global: int, sets: int = 1) -> Routing:
+    """x2d: (T, D) -> the routing decision and the aux loss, summed over
+    ``sets`` equal consecutive token sets.  A token's experts and weights
+    are its own; only the aux loss depends on the sets."""
     logits = x2d.float() @ params["router"].float()                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
     scores = torch.sigmoid(logits) if cfg.score_fn == "sigmoid" else probs
     top_w, top_e = torch.topk(scores, cfg.top_k, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    # switch-style load balance: E * sum_e(frac_tokens_e * mean_prob_e)
-    frac_tokens = _one_hot(top_e[:, 0], e_global).float().mean(dim=0)
-    aux = e_global * torch.sum(frac_tokens * probs.mean(dim=0)) * cfg.aux_loss_weight
+    # switch-style load balance per set: E * sum_e(frac_tokens_e * mean_prob_e)
+    frac_tokens = _one_hot(top_e[:, 0], e_global).float().view(sets, -1, e_global).mean(dim=1)
+    mean_prob = probs.view(sets, -1, e_global).mean(dim=1)
+    aux = e_global * torch.sum(frac_tokens * mean_prob) * cfg.aux_loss_weight
     return Routing(top_w, top_e, aux, scores)
 
 
@@ -96,18 +111,26 @@ def capacity(cfg: MoEConfig, n_tokens: int, e_global: int) -> int:
     return int(cfg.capacity_factor * n_tokens * cfg.top_k / e_global) + 1
 
 
-def dispatch_slots(top_e, cap: int, e_global: int):
+def dispatch_slots(top_e, cap: int, e_global: int, sets: int = 1):
     """top_e (T, k) -> (keep, slot), each (T*k,): whether the pair fits its
-    expert's buffer, and its row there (C - 1 for a dropped pair)."""
-    flat_e = top_e.reshape(-1)
-    onehot = _one_hot(flat_e, e_global).long()                     # (T*k, E)
-    pos = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    expert's buffer, and its row there (C - 1 for a dropped pair).  With
+    ``sets`` equal consecutive token sets, a pair counts only the earlier
+    pairs of its own set, each set has capacity ``cap``, and ``slot`` is
+    the row in the concatenated buffer (set s's rows from ``s * cap``)."""
+    flat_e = top_e.reshape(sets, -1)                                # (sets, pairs)
+    onehot = _one_hot(flat_e, e_global).long()                     # (sets, pairs, E)
+    pos = (onehot.cumsum(1) - onehot).gather(2, flat_e[..., None])[..., 0]
     keep = pos < cap
-    return keep, torch.where(keep, pos, cap - 1)
+    slot = torch.where(keep, pos, cap - 1)
+    if sets > 1:
+        slot = slot + torch.arange(0, sets * cap, cap, device=slot.device)[:, None]
+    return keep.reshape(-1), slot.reshape(-1)
 
 
-def moe(params, x, cfg: MoEConfig):
-    """x: (..., D) -> (out (..., D), aux_loss () float32)."""
+def moe(params, x, cfg: MoEConfig, sets: int = 1):
+    """x: (..., D) -> (out (..., D), aux_loss () float32).  ``sets``: the
+    number of equal consecutive token sets of the call's T =
+    prod(shape[:-1]) tokens, each routed on its own (module docstring)."""
     e_global = cfg.n_experts_global or cfg.n_experts
     if cfg.n_experts != e_global:
         raise NotImplementedError(f"{cfg.n_experts} local of {e_global} experts: expert "
@@ -116,16 +139,19 @@ def moe(params, x, cfg: MoEConfig):
     shape, D, k = x.shape, x.shape[-1], cfg.top_k
     x2d = x.reshape(-1, D)
     T = x2d.shape[0]
-    r = route(params, x2d, cfg, e_global)
+    if sets < 1 or T % sets:
+        raise ValueError(f"{T} tokens do not split into {sets} equal token sets")
+    r = route(params, x2d, cfg, e_global, sets)
 
-    # --- dispatch: scatter the (token, expert) pairs into (E, C, D)
-    cap = capacity(cfg, T, e_global)
-    keep, slot = dispatch_slots(r.top_e, cap, e_global)
+    # --- dispatch: scatter each set's (token, expert) pairs into its
+    # (E, C, D) block of the (E, sets * C, D) buffer
+    cap = capacity(cfg, T // sets, e_global)
+    keep, slot = dispatch_slots(r.top_e, cap, e_global, sets)
     flat_e = r.top_e.reshape(-1)
     flat_w = torch.where(keep, r.top_w.reshape(-1), 0.0)
     rows = x2d.unsqueeze(1).expand(T, k, D).reshape(T * k, D)       # token-major pairs
     rows = torch.where(keep[:, None], rows, 0.0)
-    buf = x2d.new_zeros((e_global, cap, D))
+    buf = x2d.new_zeros((e_global, sets * cap, D))
     buf.index_put_((flat_e, slot), rows, accumulate=True)
 
     # --- the experts, each on its whole buffer

@@ -12,8 +12,12 @@ Determinism contract: a sampled token depends only on ``(seed,
 request_id, position)`` and that row's logits, and decode is
 row-independent, so the generated text is the same whatever the arrival
 timing, admission order, or slot a request lands in.  MoE capacity routing
-is the one documented exception (rows couple through expert capacity): the
-port does not serve MoE configs per slot, and :func:`refuse_moe` says so.
+is the one documented exception, as in ``repro``: an MoE layer routes the
+rows of a token set together (one data shard's rows of one decode group in
+``build_slot_serve_step``, every row in ``engine_from_decode_step``), and
+where an expert's buffer overflows, which pairs drop depends on the other
+rows of the set, padded and idle rows included.  Where nothing drops (a
+capacity factor large enough), the contract holds for MoE configs too.
 ``repro`` samples
 with ``fold_in(fold_in(key, rid), pos)`` and ``jax.random.categorical``;
 the port cannot draw JAX's numbers, so its draws differ (as the lockstep
@@ -78,18 +82,6 @@ def poisson_requests(rate: float, horizon: float, *, n_tokens: int,
                            prompt_token=int(rng.randint(vocab)),
                            n_tokens=n_tokens))
         rid += 1
-
-
-def refuse_moe(cfg, what: str) -> None:
-    """Raise ``NotImplementedError`` for a config with MoE layers: their
-    expert capacity couples the rows of a step, so a row's tokens would
-    depend on the other slots' requests, the one documented exception to
-    the determinism contract above."""
-    if any(s.mlp == "moe" for s in cfg.pattern):
-        raise NotImplementedError(
-            f"{what} on {cfg.name}: MoE layers are not served per slot yet; their "
-            "expert capacity couples the rows of a step, the one documented exception "
-            "to the continuous batcher's determinism contract (serve MoE in lockstep)")
 
 
 def _splitmix64(x: int) -> int:
@@ -276,12 +268,12 @@ def engine_from_decode_step(params, cfg, *, batch: int, cache_len: int,
                             device="cuda"):
     """Single-device engine over ``models.model.decode_step``: the mesh-free
     path, no padded rows, with the same in-place reset (states on
-    ``device``, where ``params`` live; ``step.holder["states"]``)."""
+    ``device``, where ``params`` live; ``step.holder["states"]``).  An MoE
+    layer routes all rows as one token set, as ``repro``'s does."""
     from repro_torch.models.model import decode_step, init_decode_states
 
     from .serve import zero_rows
 
-    refuse_moe(cfg, "engine_from_decode_step")
     holder = {"states": init_decode_states(batch, cache_len, cfg, device)}
 
     @torch.inference_mode()

@@ -11,19 +11,32 @@ The one-card case of ``repro.runtime.serve`` (no ``shard_map``):
   rows are exactly 0.  ``repro``'s data shards are row blocks of the one
   batch here, shard-major as in ``repro``'s global layout; its SPMD step
   advances every shard in one step too, so each row is computed as there.
+  The lockstep step takes a data axis too (``data``), as ``repro``'s
+  batch-sharded step has one.
 * **Virtual stages.**  With P > 1 stages, ``_pipelined_decode`` streams the
   batch through P stages run in turn on the card, in ``repro``'s tick
-  order: at tick t stage p runs group t - p (bubble ticks skipped).  The
+  order: at tick t stage p runs group t - p (bubble ticks skipped).  Group
+  g is the g-th slice of every data shard's rows, the shard's rows cut into
+  n_g groups as ``repro`` cuts its local batch.  The
   periods stay in model order, unpadded (``runtime.pipeline.stage_ranges``);
   a stage with no period passes its input through, as ``repro``'s zero
   periods do.  Tensor parallelism is a label (``MeshPlan.tp``): nothing is
   split on one card.
+* **Token sets.**  Dense, Mamba and RWKV rows are independent; an MoE
+  layer's capacity couples the rows it routes together.  ``repro`` routes
+  one data shard's rows of one group together (its ``shard_map`` over
+  ``data``, ``ep_axis="data"``), so each MoE layer here routes a group's
+  rows as one token set a data shard (``models.moe.moe``'s ``sets``).
+  With more than one shard and group, the state rows are kept group-major
+  (``ServeSpec.row_order``), so that a group's rows are one block of every
+  state leaf; the step's tokens, positions, resets and logits stay
+  shard-major.
 * ``build_prefill_step`` returns last-position logits as ``repro``'s
   prefill does.
 
 With tp 1 nothing is padded, so ``repro``'s ``prepare_params`` is
-``init_model`` here.  Sequence-sharded decode (``seq_shard``) needs a data
-axis and is not ported.
+``init_model`` here.  Sequence-sharded decode (``seq_shard``: the cache
+sharded over the data axis) is not ported.
 """
 
 from __future__ import annotations
@@ -42,8 +55,8 @@ from repro_torch.models.model import (decode_step, embed_tokens, head_logits,
                                       model_forward)
 from repro_torch.optim import tree_leaves, tree_map
 
-from .continuous import refuse_moe
 from .pipeline import stage_ranges
+from .train import default_n_micro
 
 
 def serve_head_count(cfg: ModelConfig) -> int:
@@ -81,6 +94,38 @@ class ServeSpec:
         b_max = self.batch_global // self.plan.dp_shards
         return torch.tensor([[i < y for i in range(b_max)] for y in self.shard_alloc])
 
+    @property
+    def groups(self) -> int:
+        """The decode groups each data shard's rows are cut into: ``n_groups``
+        where it splits the shard's rows evenly (``repro``'s rule, on the
+        local batch), and 1 at one stage."""
+        if self.plan.stage == 1:
+            return 1
+        return _group_count(self.batch_global // self.plan.dp_shards, self.n_groups)
+
+    @property
+    def row_order(self) -> tuple[int, ...] | None:
+        """The batch row (shard-major) that each state row holds, or None
+        where they are the same.  Group g is the g-th slice of every
+        shard's rows; with more than one shard and group the state rows are
+        kept group-major, so that a group's rows, and their cache rows, are
+        one contiguous block."""
+        data, n_g = self.plan.dp_shards, self.groups
+        if data == 1 or n_g == 1:
+            return None
+        b_loc = self.batch_global // data
+        bg = b_loc // n_g
+        return tuple(d * b_loc + g * bg + i
+                     for g in range(n_g) for d in range(data) for i in range(bg))
+
+    def state_rows(self, rows) -> list[int]:
+        """The state rows that hold batch rows ``rows``."""
+        order = self.row_order
+        if order is None:
+            return list(rows)
+        where = {r: j for j, r in enumerate(order)}
+        return [where[r] for r in rows]
+
 
 @dataclasses.dataclass
 class ServeStep:
@@ -97,7 +142,9 @@ def prepare_serve_states(cfg: ModelConfig, plan: MeshPlan, batch_global: int,
     (n_periods, B, d_conv - 1, d_inner) and ``{"ssm"}`` (n_periods, B,
     d_inner, d_state) float32, an RWKV slot ``{"shift"}`` (n_periods, B, 1,
     D) and ``{"wkv"}`` (n_periods, B, H, head_dim, head_dim) float32, and
-    beside it ``"cm": {"shift"}`` (n_periods, B, 1, D) for the channel mix."""
+    beside it ``"cm": {"shift"}`` (n_periods, B, 1, D) for the channel mix.
+    Row j holds batch row ``ServeSpec.row_order[j]`` (row j itself unless
+    the step has more than one data shard and decode group)."""
     return init_period_states(batch_global, cache_len, cfg, cfg.cdtype, device)
 
 
@@ -117,16 +164,16 @@ def zero_rows(states, rows) -> None:
 
 
 def _pipelined_decode(periods, x, position, states, cfg: ModelConfig,
-                      ranges, n_groups: int):
-    """Stream the batch through the virtual stages in groups of B / n_g rows.
+                      ranges, n_g: int, sets: int = 1):
+    """Stream the batch through the virtual stages in ``n_g`` groups of
+    B / n_g consecutive rows.
 
     Stage p owns periods ``ranges[p]``.  A group's state rows are views of
     ``states`` (batch on axis 1), written in place by the decode code, so
     they reach the base tensors as ``repro``'s ``update_b`` writes them
-    back; per-row positions travel with their group."""
-    B = x.shape[0]
-    n_g = _group_count(B, n_groups)
-    bg = B // n_g
+    back; per-row positions travel with their group.  ``sets``: the number
+    of equal MoE token sets of a group's rows."""
+    bg = x.shape[0] // n_g
     acts = list(x.split(bg))
     for t in range(n_g + len(ranges) - 1):
         for p, (i, j) in enumerate(ranges):
@@ -139,40 +186,67 @@ def _pipelined_decode(periods, x, position, states, cfg: ModelConfig,
             h = acts[g]
             for k in range(i, j):
                 h, _ = decode_period(tree_index(periods, k), h, pos,
-                                     tree_index(st, k), cfg)
+                                     tree_index(st, k), cfg, sets)
             acts[g] = h
     return torch.cat(acts)
 
 
 def _decode_fn(spec: ServeSpec):
     """``fn(params, token (B,), position, states) -> (logits (B, V), states)``
-    at ``spec.plan.stage`` virtual stages."""
-    cfg = spec.cfg
+    at ``spec.plan.stage`` virtual stages, every MoE layer routing each
+    data shard's rows of a group as one token set (``repro``'s
+    ``shard_map`` over ``data`` with ``ep_axis="data"``).  Rows are
+    shard-major in ``token``, ``position`` and the logits, and stored in
+    ``spec.row_order`` in ``states``."""
+    cfg, sets, n_g = spec.cfg, spec.plan.dp_shards, spec.groups
     if spec.plan.stage == 1:
-        def fn(params, token, position, states):
-            return decode_step(params, token, position, states, cfg)
-        return fn
-    ranges = stage_ranges(cfg.n_periods, spec.plan.stage)
+        def body(params, token, position, states):
+            return decode_step(params, token, position, states, cfg, sets)
+    else:
+        ranges = stage_ranges(cfg.n_periods, spec.plan.stage)
+
+        def body(params, token, position, states):
+            x = embed_tokens(params, token, cfg)
+            h = _pipelined_decode(params["periods"], x, position, states, cfg, ranges,
+                                  n_g, sets)
+            return head_logits(params, h, cfg), states
+    order = spec.row_order
+    if order is None:
+        return body
+    back = spec.state_rows(range(spec.batch_global))
+    index: dict = {}
 
     def fn(params, token, position, states):
-        x = embed_tokens(params, token, cfg)
-        h = _pipelined_decode(params["periods"], x, position, states, cfg, ranges,
-                              spec.n_groups)
-        return head_logits(params, h, cfg), states
+        if token.device not in index:
+            index[token.device] = (torch.tensor(order, device=token.device),
+                                   torch.tensor(back, device=token.device))
+        to_state, to_batch = index[token.device]
+        if isinstance(position, torch.Tensor):
+            position = position[to_state]
+        logits, states = body(params, token[to_state], position, states)
+        return logits[to_batch], states
     return fn
 
 
 def build_serve_step(cfg: ModelConfig, *, batch_global: int, cache_len: int,
-                     stage: int = 1, n_groups: int | None = None) -> ServeStep:
+                     stage: int = 1, n_groups: int | None = None, data: int = 1,
+                     model_axis: int | None = None) -> ServeStep:
     """``step_fn(params, token (B,), position, states) -> (logits (B, V),
     states)``; ``position`` is a Python int shared by the batch (lockstep).
     Runs where ``params`` and ``states`` live; the caches, Mamba and RWKV
-    states in ``states`` are updated in place.  ``stage`` > 1 streams the
-    batch through that many virtual stages in ``n_groups`` groups."""
+    states in ``states`` are updated in place.  ``stage`` > 1 streams each
+    data shard's rows through that many virtual stages in ``n_groups``
+    groups.  The batch is ``data`` shards of equal rows, shard-major, as
+    ``repro``'s batch-sharded step: an MoE layer routes each shard's rows of
+    a group on their own.  ``model_axis`` (default ``stage``) is split into
+    ``stage`` x tp as ``repro``'s mesh is; tp is a label on one card."""
+    if data < 1 or batch_global % data:
+        raise ValueError(f"batch {batch_global} does not split into {data} data shards")
+    stage, tp = refine(stage if model_axis is None else model_axis, stage)
     if n_groups is None:
-        n_groups = _group_count(batch_global, stage)
-    spec = ServeSpec(cfg=cfg, plan=MeshPlan(stage=stage), cache_len=cache_len,
-                     batch_global=batch_global, n_groups=n_groups)
+        n_groups = _group_count(batch_global // data, stage)
+    spec = ServeSpec(cfg=cfg, plan=MeshPlan(data=data, stage=stage, tp=tp),
+                     cache_len=cache_len, batch_global=batch_global, n_groups=n_groups)
     body = _decode_fn(spec)
 
     @torch.inference_mode()
@@ -196,11 +270,12 @@ def build_slot_serve_step(cfg: ModelConfig, *, cache_len: int, shard_alloc,
     ``[d*B_max, d*B_max + shard_alloc[d])`` are live).  ``position`` is
     per-row (int32 on the card).  ``reset`` is a host mask (numpy, a list or
     a CPU tensor): its rows have every state leaf zeroed in place before the
-    step.  Padded rows return logits of exactly 0.  ``model_axis`` (default ``stage``, or 1) is split
-    into ``stage`` x tp as ``repro``'s mesh is; tp is a label on one card.
-    A config with MoE layers is refused (``continuous.refuse_moe``).
+    step.  Padded rows return logits of exactly 0; they are decoded, and
+    routed by the MoE layers, as ``repro`` decodes them.  ``model_axis``
+    (default ``stage``, or 1) is split into ``stage`` x tp as ``repro``'s
+    mesh is; tp is a label on one card.  Each MoE layer routes one data
+    shard's rows of one decode group as a token set (``_decode_fn``).
     """
-    refuse_moe(cfg, "build_slot_serve_step")
     if model_axis is None:
         model_axis = stage or 1
     if stage is None:
@@ -219,10 +294,11 @@ def build_slot_serve_step(cfg: ModelConfig, *, cache_len: int, shard_alloc,
     body = _decode_fn(spec)
     pad = [r for r in range(batch_global) if r % b_max >= shard_alloc[r // b_max]]
     pad_idx: dict = {}
+    state_row = spec.state_rows(range(batch_global))
 
     @torch.inference_mode()
     def step_fn(params, token, position, reset, states):
-        zero_rows(states, np.flatnonzero(np.asarray(reset)).tolist())
+        zero_rows(states, [state_row[r] for r in np.flatnonzero(np.asarray(reset))])
         logits, states = body(params, token, position, states)
         if pad:
             if logits.device not in pad_idx:
@@ -237,16 +313,19 @@ def build_prefill_step(cfg: ModelConfig, *, batch_global: int,
                        seq_len: int) -> ServeStep:
     """``step_fn(params, {"tokens": (B, S)}) -> last-position logits (B, V)``.
 
-    ``repro`` streams micro-batches through its stage pipeline; on one stage
-    that splits only the batch of the same products, so the whole batch runs
-    at once here.
+    ``repro`` streams its micro-batches (``runtime.train.default_n_micro``
+    of them on one device) through its stage pipeline; on one stage that
+    splits only the batch of the same products, so the whole batch runs at
+    once here, and each micro-batch's tokens are an MoE token set of their
+    own, as there.
     """
     spec = ServeSpec(cfg=cfg, plan=SINGLE, cache_len=seq_len,
                      batch_global=batch_global)
+    M = default_n_micro(cfg, SINGLE, batch_global)
 
     @torch.inference_mode()
     def step_fn(params, batch):
-        h, _, _ = model_forward(params, batch["tokens"], cfg)
+        h, _, _ = model_forward(params, batch["tokens"], cfg, sets=M)
         return head_logits(params, h[:, -1], cfg)
 
     return ServeStep(spec=spec, step_fn=step_fn)

@@ -127,13 +127,19 @@ def test_config_matches_repro(size):
 
 
 def test_published_jamba_is_refused_naming_moe():
-    """The published id is ported (its MoE layers are); what still refuses
-    it, naming MoE, is continuous serving: expert capacity couples rows."""
+    """The published id is ported, its MoE layers included.  Continuous
+    serving refused it once, naming MoE (expert capacity couples the rows of
+    a step); each MoE layer now routes one data shard's rows as a token set
+    of its own, as ``repro`` does, so nothing refuses it any more: its smoke
+    form serves continuously, every request to its end."""
     cfg = get_config(ARCH_ID)
     assert cfg.moe is not None and cfg.n_layers == 72
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="MoE"):
-        main(["--arch", ARCH_ID, "--smoke", "--device", "cpu", "--continuous"])
+    res = main(["--arch", ARCH_ID, "--smoke", "--device", "cpu", "--continuous",
+                "--devices", "8", "--requests", "2", "--gen", "2"])
+    assert any(s.mlp == "moe" for s in res["slot_step"].spec.cfg.pattern)
+    done = res["completions"]
+    assert len(done) == len(res["requests"]) >= 1 and all(len(c.tokens) == 2 for c in done)
 
 
 # ---------------------------------------------------------------------------

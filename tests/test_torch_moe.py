@@ -342,20 +342,20 @@ def test_jamba_with_experts_forward_matches_repro():
 # ---------------------------------------------------------------------------
 
 
-def test_per_slot_serving_refuses_moe():
-    """The per-slot step, the decode-step engine and ``launch.serve
-    --continuous`` refuse an MoE config, naming the capacity exception."""
-    from repro_torch.runtime.continuous import engine_from_decode_step
-    from repro_torch.runtime.serve import build_slot_serve_step
-
-    cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="capacity couples the rows"):
-        build_slot_serve_step(cfg, cache_len=8, shard_alloc=(2, 1))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        engine_from_decode_step({}, cfg, batch=2, cache_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="determinism contract"):
-        serve_launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--continuous",
-                             "--devices", "8", "--requests", "2", "--gen", "2"])
+def test_launchers_serve_phi35_moe_continuously_on_the_cpu(capsys):
+    """``launch.serve --continuous --devices 8`` on smoke phi3.5-moe: the
+    planned slot step routes each data shard's rows apart and the stream
+    finishes (``tests/test_torch_moe_slots.py`` holds its logits to
+    ``repro``'s)."""
+    res = serve_launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--continuous",
+                               "--devices", "8", "--requests", "2", "--gen", "2"])
+    out = capsys.readouterr().out
+    assert "serve plan: stage=" in out and out.rstrip().endswith("done")
+    spec = res["slot_step"].spec
+    assert spec.plan.data == 2 and spec.groups == 1      # a token set a data shard
+    done = res["completions"]
+    assert len(done) == len(res["requests"]) >= 1 and all(len(c.tokens) == 2 for c in done)
+    assert all(0 <= t < 512 for c in done for t in c.tokens)
 
 
 def test_launchers_run_phi35_moe_on_the_cpu(capsys):
