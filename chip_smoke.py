@@ -13,8 +13,11 @@ d_inner 16384 and d_state 16, vocab 65536), serves the published
 vocab 65536), and serves ``gemma-2b``, ``gemma2-2b`` and ``deepseek-7b``
 whole and trains ``gemma2-2b`` whole (26 layers, d_model 2304, 8/4 heads x
 256, d_ff 9216, vocab 256000, tied embeddings, softcaps 50 and 30, a local
-window of 4096 on every other layer), and serves 12 and trains 2 of the 32
-layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
+window of 4096 on every other layer), serves 12 and trains 2 of the 32
+layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2), and serves 1
+of the 61 layers of ``deepseek-v3-671b`` with all 256 routed experts (MLA
+with a latent cache, d_model 7168, 128 heads, no MTP head) and trains 1
+layer with its MTP block (the routed experts cut to 16):
 
 1. prints the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
@@ -253,6 +256,35 @@ layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
    --plan --profile``, 1 + 2 steps): the split, the predicted round split
    into execution and AllReduce beside the measured ms/step, launch counts
    of every step, the peak memory;
+12a. (after 11f, before phase 9's traces) the latent route of
+   ``flash_decode`` (``flash_decode_latent``: MLA's decode, one key head of
+   c_kv 512 ‖ k_rope 64 read by strides, values c_kv, scale 192^-0.5) at a
+   decode step (8, 128 heads, 256 keys, per-row lengths) and at (1, 128,
+   4096) against its plain version, two runs bitwise, timed beside its
+   bound, plain version and SDPA; the flash forward and backward at q/k 192
+   with v 128 zero-padded to 192 (the cluster route) at the prefill (8, 512,
+   128 heads), the training micro-batch (1, 1024) and the MTP block's call
+   (2, 1024), against the plain version and float64, the padded columns 0,
+   SDPA at v 128 beside them; ``fused_swiglu`` at an expert (W 7168 x
+   2048) on the rows of the decode step, the prefill and 12d's micro-batch
+   and MTP block, routed and shared, ``swiglu_bwd`` on 12d's, and the wire
+   kernels (int8, bitwise) at 12d's expert and largest gradient buckets,
+   each against its plain version, timed beside it, its bound and cuBLAS;
+12b. card vs CPU at full width: (i) the MLA block, a prefill on (1, 64)
+   tokens and 8 decode steps at batch 4, lockstep and per-row, outputs and
+   latent caches; (ii) one MoE layer at deepseek-v3's widths with 16 routed
+   experts (phase 11a's checks); (iii) on 1 layer with all 256 experts at
+   capacity factor 64, prefill (2, 32) against 32 lockstep decode steps;
+12c. serves that layer (53.4 GB of weights, no MTP head): prefill 8 x 512,
+   a decode step's busy share, then ``launch.serve --arch deepseek-v3-671b
+   --n-layers 1`` (batch 8, prompt 128 + gen 128) with exact launch counts
+   (a step: 1 ``flash_decode_latent`` and 257 ``fused_swiglu``), decode
+   ms/step beside the 49.7 GB a step reads, peak memory;
+12d. trains 1 layer and the MTP block through ``launch.train --n-layers 1
+   --n-experts 16 --stage 1 --n-micro 2 --global-batch 2 --seq 1024
+   --compress int8 --bucket-mb 256 --no-error-feedback``, 1 + 2 steps, the
+   state reckoned first: ``ce``, ``aux`` and ``mtp`` each step, launch
+   counts, ms/step, peak memory;
 9. reads device times at the training shape from profiler traces (last,
    because tracing slows later launches): the flash forward beside SDPA's
    forward, the flash backward alone, and the port's forward with the
@@ -262,16 +294,17 @@ layers of ``phi3.5-moe-42b-a6.6b`` (16 experts x 6400, top 2):
    the four ``DECODE_SHAPES`` beside SDPA's (and, at GQA shapes, the heads'
    ``repeat_interleave``'s) device time, each over input sets called in
    turn until their caches span 4x the L2 (so they come from HBM); prints
-   a ``{"kernels": [...]}`` line (all nine kernels, with their launches on
+   a ``{"kernels": [...]}`` line (every kernel, with their launches on
    the phi3 serving, phi3 continuous serving (5b (c)), phi3 training, phi3
    planned training, staleness-1 and
    failure-recovery training, portfolio (6e (a), (b)), Jamba serving,
    rwkv6-7b serving, the three dense serving paths, gemma2-2b training and
    planned training, gemma-2b training (10d-10f), phi3.5-moe serving and
    training (11c, 11d), continuous and lockstep ``--devices 8`` serving
-   and planned training (11e (b), 11f), phase 10a's rows under ``dense`` and phase 11's
-   under ``phi35_moe``) and,
-   last, ``{"ok": true, ...}``.
+   and planned training (11e (b), 11f), deepseek-v3 serving and training
+   (12c, 12d), phase 10a's rows under ``dense``, phase 11's under
+   ``phi35_moe`` and phase 12a's under ``deepseek_v3``; the latent route
+   is an entry of its own) and, last, ``{"ok": true, ...}``.
 
 Every phase raises on failure, so the script exits non-zero; nothing is
 caught.  Without a CUDA card, or run outside the repository (no ``src/``),
@@ -2003,10 +2036,12 @@ def phase_train(torch, ops, dev, card: str) -> dict:
     per_step = {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
                 "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M,
                 "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
-                "mamba_scan": 0, "rwkv6_wkv": 0}
+                "mamba_scan": 0, "rwkv6_wkv": 0,
+                "flash_decode_latent": 0}
     per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
                 "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
-                "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
+                "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0,
+                "flash_decode_latent": 0}
     prev = {k: 0 for k in launches}
     for label, snap in marks:
         delta = {k: snap[k] - prev[k] for k in snap}
@@ -2255,7 +2290,8 @@ def phase_plan_train(torch, ops, dev, card: str, arch: str = "phi3-mini-3.8b",
     per_step = _train_counts(L, M, P, nb, E)
     per_eval = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
                 "fused_swiglu": E * L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
-                "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
+                "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0,
+                "flash_decode_latent": 0}
     prev = {k: 0 for k in launches}
     for label, snap in marks:
         delta = {k: snap[k] - prev[k] for k in snap}
@@ -2423,7 +2459,8 @@ def _train_counts(L, M, P, nb, experts: int = 1):
     return {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
             "fused_swiglu": 2 * experts * L * M, "swiglu_bwd": experts * L * M,
             "quantize_tiles": 2 * hops + nb, "dequantize_tiles": 2 * hops + nb,
-            "mamba_scan": 0, "rwkv6_wkv": 0}
+            "mamba_scan": 0, "rwkv6_wkv": 0,
+            "flash_decode_latent": 0}
 
 
 def _check_marks(marks, launches, want_of):
@@ -2478,7 +2515,8 @@ def phase_stale_train(torch, ops, dev, card: str, plan_train: dict) -> dict:
     hops = M * (P - 1)
     eval_counts = {"flash_decode": 0, "flash_attention": L * M, "flash_attention_bwd": 0,
                    "fused_swiglu": L * M, "swiglu_bwd": 0, "quantize_tiles": hops,
-                   "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0}
+                   "dequantize_tiles": hops, "mamba_scan": 0, "rwkv6_wkv": 0,
+                   "flash_decode_latent": 0}
     _check_marks(marks, launches, lambda label, extra: eval_counts if extra else step_counts)
     losses = res["losses"]
     if not all(math.isfinite(x) for x in losses):
@@ -2738,7 +2776,8 @@ def _step_counts(L, ts):
     q = 2 * M * (P - 1) + len(ts.buckets) if spec.compress != "none" else 0
     return {"flash_decode": 0, "flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
             "fused_swiglu": 2 * L * M, "swiglu_bwd": L * M, "quantize_tiles": q,
-            "dequantize_tiles": q, "mamba_scan": 0, "rwkv6_wkv": 0}
+            "dequantize_tiles": q, "mamba_scan": 0, "rwkv6_wkv": 0,
+            "flash_decode_latent": 0}
 
 
 def reckon_probe(ts, params) -> dict:
@@ -3872,11 +3911,6 @@ def phase_moe_kernels(torch, ops, F, dev, entries: dict) -> None:
     ``dequantize_tiles`` (int8, bitwise) at a stage boundary (2, 2048,
     4096) and at the largest gradient bucket, a (2, 16, 4096, 6400) stacked
     expert weight."""
-    from repro_torch.kernels import quant_transfer as qt
-    from repro_torch.kernels.fused_swiglu import swiglu_bwd
-    from repro_torch.kernels.ref import (naive_dequantize_tiles, naive_quantize_tiles,
-                                         naive_swiglu_act_bwd)
-
     g = torch.Generator(device=dev).manual_seed(32)
     rows = {name: [] for name in ("fused_swiglu", "swiglu_bwd", "flash_attention",
                                   "flash_attention_bwd", "flash_decode", "quantize_tiles",
@@ -3896,17 +3930,7 @@ def phase_moe_kernels(torch, ops, F, dev, entries: dict) -> None:
     T = 641
     gg, uu = xs[T] @ w[0], xs[T] @ w[1]
     dh = rnd(T, Dm) @ w[2].T
-    err = max(max_err(a, b) for a, b in zip(swiglu_bwd(gg, uu, dh),
-                                           naive_swiglu_act_bwd(gg, uu, dh)))
-    check(err, TOL_ELEMENTWISE, f"swiglu_bwd phi3.5-moe expert ({T}, {Fd}) silu")
-    ms = time_ms([lambda: swiglu_bwd(gg, uu, dh)], torch)
-    plain = time_ms([lambda: naive_swiglu_act_bwd(gg, uu, dh)], torch)
-    bms, by = bound(6 * 4 * T * Fd, 0)
-    print(f"  swiglu_bwd phi3.5-moe expert ({T}, {Fd}) silu: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
-    rows["swiglu_bwd"].append({"row": "train", "max_abs_err": err, "ms": ms,
-                               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                               "library_ms": None, "shape": f"g/u/dh ({T},{Fd}) fp32 silu"})
+    rows["swiglu_bwd"].append(swiglu_bwd_row(torch, gg, uu, dh, "phi3.5-moe expert", "train"))
     del w, xs, gg, uu, dh
 
     for name, shape in MOE_ATTN.items():
@@ -3915,18 +3939,53 @@ def phase_moe_kernels(torch, ops, F, dev, entries: dict) -> None:
                                            MOE_DECODE_SHAPES))
 
     tile = 256
-    for where, R in (("boundary", 2 * 2048 * 4096 // tile),
-                     ("largest_bucket", 2 * 16 * 4096 * 6400 // tile)):
+    quant_rows(torch, g, dev, "phi3.5-moe", (("boundary", 2 * 2048 * 4096 // tile),
+                                            ("largest_bucket", 2 * 16 * 4096 * 6400 // tile)),
+               tile, rows)
+    for name, r in rows.items():
+        entries[name]["phi35_moe"] = r
+
+
+def swiglu_bwd_row(torch, gg, uu, dh, what: str, row: str) -> dict:
+    """``swiglu_bwd`` (silu) on an expert's products ``gg``, ``uu`` and the
+    cotangent ``dh``, each (T, F), against its plain version, timed beside
+    it and its bound (the three read and two gradients written once): the
+    row named ``row`` of the kernel's entry."""
+    from repro_torch.kernels.fused_swiglu import swiglu_bwd
+    from repro_torch.kernels.ref import naive_swiglu_act_bwd
+
+    T, Fd = gg.shape
+    err = max(max_err(a, b) for a, b in zip(swiglu_bwd(gg, uu, dh),
+                                           naive_swiglu_act_bwd(gg, uu, dh)))
+    check(err, TOL_ELEMENTWISE, f"swiglu_bwd {what} ({T}, {Fd}) silu")
+    ms = time_ms([lambda: swiglu_bwd(gg, uu, dh)], torch)
+    plain = time_ms([lambda: naive_swiglu_act_bwd(gg, uu, dh)], torch)
+    bms, by = bound(6 * 4 * T * Fd, 0)
+    print(f"  swiglu_bwd {what} ({T}, {Fd}) silu: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    return {"row": row, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "shape": f"g/u/dh ({T},{Fd}) fp32 silu"}
+
+
+def quant_rows(torch, g, dev, what: str, cases, tile: int, rows: dict) -> None:
+    """``quantize_tiles`` / ``dequantize_tiles`` (int8) on ``wire_rows``
+    (R, ``tile``) for each (where, R) of ``cases``, bitwise against their
+    plain versions, timed beside them and their bound (the float32 rows
+    and the int8 payload and scales moved once), appended to ``rows``."""
+    from repro_torch.kernels import quant_transfer as qt
+    from repro_torch.kernels.ref import naive_dequantize_tiles, naive_quantize_tiles
+
+    for where, R in cases:
         x = wire_rows(torch, g, R, tile, "int8", dev)
         q, sc = qt.quantize_tiles(x)
         qr, sr = naive_quantize_tiles(x)
         ok = (bitwise_equal(torch, q, qr) and bitwise_equal(torch, sc, sr)
               and bitwise_equal(torch, qt.dequantize_tiles(q, sc),
                                 naive_dequantize_tiles(qr, sr)))
-        print(f"  quantize/dequantize int8 phi3.5-moe {where} ({R}, {tile}): bitwise "
+        print(f"  quantize/dequantize int8 {what} {where} ({R}, {tile}): bitwise "
               f"{'equal' if ok else 'DIFFERENT'}")
         if not ok:
-            raise AssertionError(f"quant kernels differ from the plain versions: phi3.5-moe "
+            raise AssertionError(f"quant kernels differ from the plain versions: {what} "
                                  f"{where}")
         del qr, sr
         n = R * tile
@@ -3938,20 +3997,19 @@ def phase_moe_kernels(torch, ops, F, dev, entries: dict) -> None:
             ms = time_ms([fn], torch)
             plain = time_ms([plain_fn], torch)
             bms, by = bound(4 * n + n + 4 * R, 0)
-            print(f"  {name} int8 phi3.5-moe {where} ({R}, {tile}): kernel {ms:.4f} ms, plain "
+            print(f"  {name} int8 {what} {where} ({R}, {tile}): kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
             rows[name].append({"row": where, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                                "bound_ms": bms, "bound_by": by, "library_ms": None,
                                "shape": f"({R}, {tile}) f32 <-> int8"})
         del x, q, sc
         torch.cuda.empty_cache()
-    for name, r in rows.items():
-        entries[name]["phi35_moe"] = r
 
 
-def phase_moe_layer(torch, dev) -> None:
-    """11a: one full-width MoE layer (router 4096 x 16, 16 experts 4096 x
-    6400, top 2) on (1, 64) tokens, made on the card from a seed and copied
+def phase_moe_layer(torch, dev, arch: str = MOE_ARCH, **moe_kw) -> None:
+    """11a: one full-width MoE layer of ``arch`` (phi3.5-moe: router 4096 x
+    16, 16 experts 4096 x 6400, top 2; its MoE config replaced by
+    ``moe_kw``) on (1, 64) tokens, made on the card from a seed and copied
     to the CPU: the routing decisions (experts and kept slots) equal first,
     then the output, the aux loss and the gradients of ``sum(out * r) +
     aux`` for every leaf and the input, card vs CPU; two card runs bitwise
@@ -3961,8 +4019,9 @@ def phase_moe_layer(torch, dev) -> None:
     from repro_torch.optim import tree_leaves, tree_map
     from repro_torch.runtime.train import tree_paths
 
-    cfg = get_config(MOE_ARCH)
-    mc, E, D = cfg.moe, cfg.moe.n_experts, cfg.d_model
+    cfg = get_config(arch)
+    mc, D = dataclasses.replace(cfg.moe, **moe_kw), cfg.d_model
+    E = mc.n_experts
     cpu = torch.device("cpu")
     T = 64
     p_card = tmoe.init_moe(torch.Generator(device=dev).manual_seed(33), D, mc,
@@ -4440,6 +4499,520 @@ def phase_moe_continuous(torch, ops, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     return {"continuous": launches, "lockstep_dp2": lock}
 
+# ---------------------------------------------------------------------------
+# Phase 12: deepseek-v3-671b, its MLA and its MTP head
+# ---------------------------------------------------------------------------
+
+DS_ARCH = "deepseek-v3-671b"
+# the latent route of flash_decode at a lockstep decode step (batch 8 over a
+# 256-row cache, phase 3's per-row lengths) and at batch 1 over 4096 keys:
+# name -> (B, H, S, per-row lengths or None for a shared length of S)
+DS_LATENT_SHAPES = {"decode": (8, 128, 256, DECODE_SHAPES["phi3"][5]),
+                    "long": (1, 128, 4096, None)}
+# MLA's widths: the latent c_kv and the shared rope key; q/k heads of
+# qk_nope + qk_rope, values of v_head_dim (zero-padded to q/k's for flash)
+DS_R, DS_DR, DS_QK, DS_V = 512, 64, 192, 128
+# flash attention at MLA's prefill (8 x 512), training micro-batch (1 x
+# 1024) and the MTP block's call on 12d's whole batch (2 x 1024), 128
+# heads: name -> (B, S, H)
+DS_ATTN = {"prefill": (8, 512, 128), "train": (1, 1024, 128), "train_mtp": (2, 1024, 128)}
+# an expert of deepseek-v3 (W 7168 x 2048, silu; the shared one has the
+# same widths): fused_swiglu's rows on the paths (capacity C = int(1.25 T k
+# / E) + 1 a token set): name -> rows of x.  The decode step at batch 8 (C 1
+# of 256 experts; the shared expert on the 8 rows); the prefill 8 x 512 (2
+# sets of 4 x 512, 81 rows each; shared 4096); 12d's micro-batch of 1024
+# tokens (top 8 of 16: 641; shared 1024) and the MTP block on both (1281;
+# shared 2048)
+DS_SWIGLU_ROWS = {"decode": 1, "decode_shared": 8, "prefill": 162, "prefill_shared": 4096,
+                  "train": 641, "train_shared": 1024, "train_mtp": 1281,
+                  "train_mtp_shared": 2048}
+# swiglu_bwd on 12d's expert buffers: name -> rows (of 2048)
+DS_SWIGLU_BWD_ROWS = {"train": 641, "train_shared": 1024, "train_mtp": 1281,
+                      "train_mtp_shared": 2048}
+# 12d's gradient buckets (--bucket-mb 256) on the wire, tiles of 256: one of
+# the stacked expert weights (16 x 7168 x 2048) and the largest, the
+# embedding's (129280 x 7168) and the head's
+DS_WIRE_ROWS = (("expert_bucket", 16 * 7168 * 2048 // 256),
+                ("largest_bucket", 129280 * 7168 // 256))
+# serving holds 1 of the 61 layers with all 256 routed experts (53.4 GB of
+# fp32 weights, no MTP head); training 1 layer and the MTP block with the
+# routed experts cut to 16 (top 8 kept): 61.3 GB of state at 16 B a parameter
+DS_SERVE_LAYERS, DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS = 1, 1, 16
+# 12b (iii): prefill vs lockstep decode on the 256-expert layer, a prompt of
+# this many tokens at batch 2, capacity factor 64 (nothing drops)
+DS_PARITY_PROMPT = 32
+# the MLA block at full width card vs CPU (12b (i)), max |diff| / max
+# |value|: fp32 sums over 7168, 1536, 16384 and the keys in other orders
+# (cuBLAS, 3xTF32 flash and the SIMT latent route on the card; plain
+# versions on the CPU); TOL_MOE_OUT's bound for a layer
+TOL_MLA_LAYER = TOL_MOE_OUT
+
+
+def latent_bound(B, H, valid, R=DS_R, Dr=DS_DR):
+    """The latent route's least time: q_lat ‖ q_rope read and the (B, H, R)
+    output written once, each of the ``valid`` cache rows (c_kv ‖ k_rope)
+    read once, the lengths; or 2·(R + Dr) + 2·R flops a (head, valid key),
+    the scores over the 576-wide key and P·c_kv, as fp32 products on the
+    tensor cores (3xTF32), and an exponential a (head, valid key)."""
+    return bound(4 * (B * H * (R + Dr) + B * H * R + valid * (R + Dr) + B), 0,
+                 H * valid, tf32x3=2 * (2 * R + Dr) * H * valid)
+
+
+def mla_flash_bound(B, S, H, Dqk=DS_QK, Dv=DS_V):
+    """MLA's causal attention at q/k ``Dqk`` and v ``Dv`` wide (the function,
+    without flash's padding): q, k, v read and the output written once, or
+    2·Dqk + 2·Dv flops a (query, visible key) pair as 3xTF32 and an
+    exponential a pair."""
+    pairs = B * H * causal_pairs(S)
+    return bound(4 * B * S * H * (2 * Dqk + 2 * Dv), 0, pairs, tf32x3=2 * (Dqk + Dv) * pairs)
+
+
+def mla_flash_bwd_bound(B, S, H, Dqk=DS_QK, Dv=DS_V):
+    """Its backward: q, k, dq, dk (``Dqk``) and v, o, dO, dv (``Dv``) moved
+    once and the logsumexp read, or the five products (the scores again and
+    dQ, dK over ``Dqk``; dP and dV over ``Dv``), 6·Dqk + 4·Dv flops a pair,
+    as 3xTF32, and an exponential a pair."""
+    pairs = B * H * causal_pairs(S)
+    return bound(4 * (B * S * H * (4 * Dqk + 4 * Dv) + B * H * S), 0, pairs,
+                 tf32x3=(6 * Dqk + 4 * Dv) * pairs)
+
+
+def mla_attn_rows(torch, ops, F, dev, name, B, S, H, gen, rows: dict) -> None:
+    """``flash_attention`` and its backward at MLA's widths, causal: q/k at
+    ``DS_QK``, v of ``DS_V`` zero-padded to it (``models.attention.
+    mla_forward``), the cotangent padded likewise; the padding's output
+    columns exactly 0; each against its plain version and float64, on the
+    two-CTA cluster route; timed beside the unpadded function's bound, the
+    plain version and SDPA at the unpadded widths (its cost of padding)."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_route,
+                                                     flash_attention_fwd_route)
+
+    D, Dv = DS_QK, DS_V
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    q, k = rnd(B, S, H, D), rnd(B, S, H, D)
+    v = F.pad(rnd(B, S, H, Dv), (0, D - Dv))
+    dout = F.pad(rnd(B, S, H, Dv, scale=1.0), (0, D - Dv))
+    what = f"({B}, {S}, {H}, {H}, {D}) causal, v {Dv} zero-padded to {D}"
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    f_err = max_err(out, ops.plain_flash_attention(q, k, v))
+    check(f_err, TOL_FP32, f"flash_attention deepseek_v3 {name} {what}")
+    check(max_err(out, attention_float64(torch, q, k, v)), TOL_FP32,
+          f"flash_attention deepseek_v3 {name} against float64")
+    pad = float(out[..., Dv:].abs().max())
+    f_route = flash_attention_fwd_route(q, k, v)
+    print(f"  flash_attention deepseek_v3 {name}: route {f_route}, padded columns max |out| "
+          f"{pad} (must be 0)")
+    check_route(f_route, "tc_cluster", f"flash_attention deepseek_v3 {name}")
+    if pad != 0.0:
+        raise AssertionError(f"flash_attention deepseek_v3 {name}: padded columns not 0")
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    b_err = max(max_err(a, b) for a, b in zip(got, ops.plain_flash_attention_bwd(q, k, v, dout)))
+    check(b_err, TOL_FP32, f"flash_attention_bwd deepseek_v3 {name} {what} dq/dk/dv")
+    check(max(max_err(a, b) for a, b in zip(got, attention_bwd_float64(torch, q, k, v, dout))),
+          TOL_FP32, f"flash_attention_bwd deepseek_v3 {name} against float64")
+    route = flash_attention_bwd_route(q, k, v, dout)
+    check_route(route, "tc_cluster", f"flash_attention_bwd deepseek_v3 {name}")
+    del got
+    torch.cuda.empty_cache()
+    f_ms = time_ms([lambda: ops.flash_attention_op(q, k, v)], torch)
+    f_plain = time_ms([lambda: ops.plain_flash_attention(q, k, v)], torch)
+    b_ms = time_ms([lambda: flash_attention_bwd(q, k, v, out, lse, dout)], torch)
+    b_plain = time_ms([lambda: ops.plain_flash_attention_bwd(q, k, v, dout)], torch)
+    # SDPA on the unpadded widths (q/k 192, v 128), heads before S
+    qt, kt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k))
+    vt = v[..., :Dv].transpose(1, 2).detach().requires_grad_(True)
+    dt = dout[..., :Dv].transpose(1, 2)
+    f_lib = time_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)],
+                    torch)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    b_lib = time_ms([sdpa], torch)
+    del qt, kt, vt, dt
+    fb, fby = mla_flash_bound(B, S, H)
+    bb, bby = mla_flash_bwd_bound(B, S, H)
+    print(f"  flash_attention deepseek_v3 {name} ({f_route}, v padded {Dv} -> {D}): kernel "
+          f"{f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA at v {Dv} {f_lib:.4f} ms, bound of "
+          f"the unpadded function {fb:.4f} ms ({fby}, {fb / f_ms:.1%} of it)")
+    print(f"  flash_attention_bwd deepseek_v3 {name} ({route}): kernel {b_ms:.4f} ms, plain "
+          f"(autograd) {b_plain:.4f} ms, SDPA fwd+bwd at v {Dv} {b_lib:.4f} ms, bound "
+          f"{bb:.4f} ms ({bby}, {bb / b_ms:.1%} of it)")
+    shape = f"q/k ({B},{S},{H},{D}) v ({B},{S},{H},{Dv}) padded to {D} causal fp32"
+    rows["flash_attention"].append(
+        {"row": f"deepseek_v3_{name}", "route": f_route, "max_abs_err": f_err, "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": fb, "bound_by": fby, "library_ms": f_lib,
+         "shape": shape})
+    rows["flash_attention_bwd"].append(
+        {"row": f"deepseek_v3_{name}", "route": route, "max_abs_err": b_err, "ms": b_ms,
+         "plain_ms": b_plain, "bound_ms": bb, "bound_by": bby, "library_ms": b_lib,
+         "shape": shape})
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+
+def phase_ds_kernels(torch, ops, F, dev, entries: dict) -> dict:
+    """12a: the latent route of ``flash_decode`` (``flash_decode_latent``)
+    at ``DS_LATENT_SHAPES`` on caches read by strides out of stacked (2, B,
+    S, ...) buffers, as the model hands them over, against its plain
+    version (``ref.naive_latent_decode``), two runs bitwise, timed beside
+    its bound, the plain version and SDPA (one key head of c_kv ‖ k_rope,
+    concatenated and expanded outside the call, values c_kv); the flash
+    forward and backward at ``DS_ATTN`` (``mla_attn_rows``) and the expert
+    and wire kernels (``ds_expert_rows``), rows under ``deepseek_v3``.
+    Returns the latent route's entry."""
+    from repro_torch.kernels.ref import naive_latent_decode
+
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).mul_(0.5)
+
+    R, Dr, scale = DS_R, DS_DR, DS_QK ** -0.5
+    entry = {"name": "flash_decode_latent", "route": "cuda",
+             "source": "src/repro_torch/csrc/decode_attention.cu",
+             "replaces": "src/repro/kernels/decode_attention.py:65"}
+    for name, (B, H, S, lens) in DS_LATENT_SHAPES.items():
+        q_lat, q_rope = rnd(B, H, R), rnd(B, H, Dr)
+        ckv, krope = rnd(2, B, S, R)[1], rnd(2, B, S, Dr)[1]
+        clen = S if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q_lat, q_rope, ckv, krope, clen)
+        got = ops.flash_decode_latent_op(*args, scale=scale)
+        want = naive_latent_decode(*args, scale=scale)
+        what = (f"flash_decode_latent {name} q ({B}, {H}, {R} + {Dr}) cache ({B}, {S}, {R} + "
+                f"{Dr}) {'per-row lengths' if lens else 'full length'}")
+        err = max_err(got, want)
+        check(err, TOL_FP32, what)
+        same = bitwise_equal(torch, got, ops.flash_decode_latent_op(*args, scale=scale))
+        kk = torch.cat([ckv, krope], -1)[:, None].expand(B, H, S, R + Dr)
+        qq = torch.cat([q_lat, q_rope], -1)[:, :, None]
+        vv = ckv[:, None].expand(B, H, S, R)
+        mask = None if lens is None else \
+            (torch.arange(S, device=dev)[None, :] < clen[:, None])[:, None, None, :]
+
+        def lib_call():
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=scale)
+
+        lib_err = max_err(lib_call()[:, :, 0], want)
+        print(f"  {what}: two runs bitwise {'equal' if same else 'DIFFERENT'}; SDPA's max abs "
+              f"err {lib_err:.3e}")
+        if not same:
+            raise AssertionError(f"flash_decode_latent {name}: two runs differ")
+        ms = time_ms([lambda: ops.flash_decode_latent_op(*args, scale=scale)], torch)
+        plain = time_ms([lambda: naive_latent_decode(*args, scale=scale)], torch)
+        lib = time_ms([lib_call], torch)
+        valid = B * S if lens is None else sum(lens)
+        bms, by = latent_bound(B, H, valid)
+        print(f"  flash_decode_latent {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+              f"{lib:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it)")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+               "bound_by": by, "library_ms": lib,
+               "shape": f"q ({B},{H},{R}+{Dr}) cache ({B},{S},{R}+{Dr}) valid keys {valid} "
+                        f"scale 192^-0.5 fp32"}
+        if name == "decode":
+            entry.update(row)
+        else:
+            entry[name] = row
+        del q_lat, q_rope, ckv, krope, kk, qq, vv, got, want
+    rows = {"flash_attention": [], "flash_attention_bwd": []}
+    for name, (B, S, H) in DS_ATTN.items():
+        mla_attn_rows(torch, ops, F, dev, name, B, S, H, g, rows)
+    rows.update(ds_expert_rows(torch, ops, F, dev))
+    for name, r in rows.items():
+        entries[name]["deepseek_v3"] = r
+    torch.cuda.empty_cache()
+    return entry
+
+
+def ds_expert_rows(torch, ops, F, dev) -> dict:
+    """12a's rows of the expert and wire kernels at deepseek-v3's shapes,
+    each against its plain version and timed beside it, its bound and the
+    library call: ``fused_swiglu`` at ``DS_SWIGLU_ROWS``, ``swiglu_bwd`` at
+    ``DS_SWIGLU_BWD_ROWS`` and ``quantize_tiles`` / ``dequantize_tiles`` at
+    ``DS_WIRE_ROWS`` (int8, bitwise).  Returns kernel name -> rows."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    rows = {name: [] for name in ("fused_swiglu", "swiglu_bwd", "quantize_tiles",
+                                  "dequantize_tiles")}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    Dm, Fd = 7168, 2048
+    w = (rnd(Dm, Fd, scale=Dm ** -0.5), rnd(Dm, Fd, scale=Dm ** -0.5),
+         rnd(Fd, Dm, scale=Fd ** -0.5))
+    for name, T in DS_SWIGLU_ROWS.items():
+        rows["fused_swiglu"].append(
+            {"row": name, **time_swiglu(torch, ops, F, rnd(T, Dm), w, "deepseek-v3 expert")})
+    for name, T in DS_SWIGLU_BWD_ROWS.items():
+        x = rnd(T, Dm)
+        gg, uu, dh = x @ w[0], x @ w[1], rnd(T, Dm) @ w[2].T
+        rows["swiglu_bwd"].append(swiglu_bwd_row(torch, gg, uu, dh, "deepseek-v3 expert", name))
+        del x, gg, uu, dh
+    del w
+    torch.cuda.empty_cache()
+    quant_rows(torch, g, dev, "deepseek-v3", DS_WIRE_ROWS, 256, rows)
+    return rows
+
+
+def phase_ds_mla(torch, dev) -> None:
+    """12b (i): the MLA block alone at full width (d_model 7168, 128 heads,
+    ranks 1536 / 512, heads 128 + 64 wide, values 128), made on the card
+    from a seed and copied to the CPU: ``attention_forward`` on (1, 64)
+    tokens, then 8 ``attention_decode`` steps from an empty latent cache at
+    batch 4, lockstep and each row at its own position, card vs CPU: every
+    output and the caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as tatt
+
+    cfg = get_config(DS_ARCH)
+    a, D = cfg.attn, cfg.d_model
+    cpu = torch.device("cpu")
+    p_card = tatt.init_mla_attention(torch.Generator(device=dev).manual_seed(42), D, a,
+                                     cfg.pdtype, dev)
+    p_cpu = _tree_to(p_card, cpu)
+    g = torch.Generator().manual_seed(43)
+    T = 64
+    x = torch.randn((1, T, D), generator=g)
+    pos = torch.arange(T, dtype=torch.int32)[None]
+    with torch.no_grad():
+        got = tatt.attention_forward(p_card, x.to(dev), pos.to(dev), a)
+        want = tatt.attention_forward(p_cpu, x, pos, a)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite MLA prefill output on the card")
+    check(_rel(torch, got.cpu(), want), TOL_MLA_LAYER,
+          f"MLA prefill (1, {T}) card vs CPU, max|diff| / max|value|")
+    B, S = 4, 16
+    for per_row in (False, True):
+        caches = {d: tatt.init_attention_cache(B, S, a, cfg.cdtype, d) for d in (dev, cpu)}
+        worst = 0.0
+        for t in range(8):
+            xt = torch.randn((B, D), generator=g)
+            outs = {}
+            for d in (dev, cpu):
+                p = p_card if d == dev else p_cpu
+                pos_t = (torch.tensor([t, t + 2, t + 5, t + 7], dtype=torch.int32, device=d)
+                         if per_row else t)
+                with torch.no_grad():
+                    outs[d], _ = tatt.attention_decode(p, xt.to(d), pos_t, caches[d], a)
+            worst = max(worst, _rel(torch, outs[dev].cpu(), outs[cpu]))
+        kind = "per-row positions" if per_row else "lockstep"
+        check(worst, TOL_MLA_LAYER, f"MLA decode batch {B}, 8 steps, {kind}, card vs CPU, "
+                                    "worst step max|diff| / max|value|")
+        for name in ("c_kv", "k_rope"):
+            check(_rel(torch, caches[dev][name].cpu(), caches[cpu][name]), TOL_MLA_LAYER,
+                  f"MLA latent cache {name!r} after 8 steps, {kind}, card vs CPU")
+    del p_card, p_cpu, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ds_serve(torch, ops, dev, card: str) -> dict:
+    """12b (iii) and 12c: 1 of the 61 layers of deepseek-v3 at full width
+    with all 256 routed experts and no MTP head (53.4 GB of fp32 weights):
+    (iii) at capacity factor 64 (nothing drops), the prefill's last-position
+    logits on (2, ``DS_PARITY_PROMPT``) tokens against as many lockstep
+    decode steps (flash at q/k 192 against the latent route); 12c the
+    prefill 8 x 512 (warmed up at that shape, timed twice, the last the
+    path's counted run), the decode step's device-busy share and top kernels
+    from a trace, then ``launch.serve --arch deepseek-v3-671b --n-layers 1``
+    (batch 8, prompt 128 + gen 128): exact launch counts (a layer and step:
+    1 ``flash_decode_latent`` and 257 ``fused_swiglu``), decode ms/step
+    beside the bytes it must read, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model import init_model
+    from repro_torch.runtime.serve import (build_prefill_step, build_serve_step,
+                                           prepare_serve_states)
+
+    # no MTP head, as launch.serve: mtp_depth 0
+    cfg = get_config(DS_ARCH).replace(n_layers=DS_SERVE_LAYERS, mtp_depth=0)
+    L, E = cfg.n_layers, cfg.moe.n_experts
+    per_layer = E + cfg.moe.n_shared_experts            # fused_swiglu a layer and forward
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    if "mtp" in params:
+        raise AssertionError("the serve path allocated an MTP head")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    print(f"  weights {n_bytes / 1e9:.3f} GB ({cfg.param_count()} params, {L} of 61 layers, "
+          f"{E} routed experts, no MTP head) made on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+
+    print(f"phase 12b (iii): deepseek-v3 prefill vs lockstep decode on the card, {L} layer of "
+          f"{E} experts, capacity factor 64")
+    cfg64 = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+    B, S = 2, DS_PARITY_PROMPT
+    caps = (tmoe.capacity(cfg64.moe, S, E), tmoe.capacity(cfg64.moe, B, E))
+    if caps[0] < S or caps[1] < B:
+        raise AssertionError(f"capacities {caps} can drop pairs")
+    want = build_prefill_step(cfg64, batch_global=B, seq_len=S).step_fn(
+        params, {"tokens": tokens[:B, :S]})
+    ss = build_serve_step(cfg64, batch_global=B, cache_len=S)
+    states = prepare_serve_states(cfg64, ss.spec.plan, B, S, dev)
+    for t in range(S):
+        logits, states = ss.step_fn(params, tokens[:B, t], t, states)
+    if not bool(torch.isfinite(logits).all()) or not bool(torch.isfinite(want).all()):
+        raise AssertionError("non-finite deepseek-v3 logits on the card")
+    check(_rel(torch, logits, want), TOL_PREFILL_DECODE,
+          f"deepseek-v3 prefill ({B}, {S}) last-position logits vs {S} lockstep decode "
+          f"steps (capacities {caps[0]} and {caps[1]} rows an expert), max|diff| / max|logit|")
+    del states, logits, want
+
+    print(f"phase 12c: serve deepseek-v3 at full width, {L} of 61 layers, all {E} experts")
+    Bp, Sp = 8, 512
+    batch, prompt, gen = 8, 128, 128
+    pf = build_prefill_step(cfg, batch_global=Bp, seq_len=Sp)
+    prefill_ms = []
+
+    def timed_prefill():
+        t0 = time.perf_counter()
+        out = pf.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pf.step_fn(params, {"tokens": tokens})                      # warm-up at the shape
+    timed_prefill()
+    n_steps = 4
+    busy_ms, dec_kernels = profile_decode(torch, cfg, params, tokens[:batch, 0], batch,
+                                          prompt + gen, dev, n_steps)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    logits = timed_prefill()
+    after_prefill = dict(ops.LAUNCHES)
+    if logits.shape != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"deepseek-v3 prefill logits {tuple(logits.shape)} not finite/shaped")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res = launcher.main(["--arch", DS_ARCH, "--n-layers", str(L), "--batch", str(batch),
+                         "--prompt-len", str(prompt), "--gen", str(gen)])
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if "mtp" in res["params"]:
+        raise AssertionError("launch.serve allocated an MTP head")
+    toks = res["tokens"]
+    if toks.shape != (prompt + gen, batch) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"deepseek-v3 launcher tokens {toks.shape} out of range")
+    steps = res["steps"]
+    want_prefill = {name: 0 for name in ops.LAUNCHES}
+    want_prefill.update(flash_attention=L, fused_swiglu=per_layer * L)
+    want_all = dict(want_prefill, flash_decode_latent=L * steps,
+                    fused_swiglu=per_layer * L * (steps + 1))
+    print(f"  launches: prefill {after_prefill} (expected {want_prefill}); prefill + {steps} "
+          f"decode steps {launches} (expected {want_all})")
+    if after_prefill != want_prefill or launches != want_all:
+        raise AssertionError("deepseek-v3 serving launch counts differ from the path's")
+    step_ms = res["seconds"] / steps * 1e3
+    read_ms, _ = bound(n_bytes - embed_bytes, 0)
+    print(f"serve deepseek-v3-671b full width fp32, {L} of 61 layers ({E} routed experts + "
+          f"1 shared, MLA latent cache): prefill {Bp}x{Sp} {prefill_ms[-1]:.3f} ms (calls "
+          f"{', '.join(f'{x:.3f}' for x in prefill_ms)} after a warm-up); decode "
+          f"{step_ms:.3f} ms/step over {steps} steps (batch {batch}, cache {prompt + gen}); a "
+          f"step reads {(n_bytes - embed_bytes) / 1e9:.2f} GB of weights, >= {read_ms:.3f} ms "
+          f"at 3.35 TB/s ({read_ms / step_ms:.1%} of the step); {L} flash_decode_latent and "
+          f"{per_layer * L} fused_swiglu launches a step; {res['tok_per_s']:.1f} tok/s; peak "
+          f"memory {peak / 1e9:.3f} GB; card {card}")
+    if busy_ms is not None:
+        print(f"  device busy {busy_ms:.3f} ms of the {step_ms:.3f} ms decode step "
+              f"({busy_ms / step_ms:.1%}; idle {1 - busy_ms / step_ms:.1%}); the experts' "
+              f"fused_swiglu {swiglu_ms(dec_kernels, n_steps):.3f} ms of it")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "busy_ms": busy_ms, "peak_gb": peak / 1e9}
+
+
+def _ds_train_counts(L, M, P, nb, experts: int):
+    """One step's launches with the MTP block: ``_train_counts`` plus the
+    block's one layer, run once over the whole batch and not recomputed (a
+    forward and a backward of its attention and of its ``experts`` MLPs)."""
+    want = _train_counts(L, M, P, nb, experts)
+    want["flash_attention"] += 1
+    want["flash_attention_bwd"] += 1
+    want["fused_swiglu"] += experts
+    want["swiglu_bwd"] += experts
+    return want
+
+
+def phase_ds_train(torch, ops, dev, card: str) -> dict:
+    """12d: deepseek-v3, 1 layer and the MTP block at published widths, the
+    routed experts cut to 16 (top 8 kept), through ``launch.train
+    --n-layers 1 --n-experts 16 --stage 1 --n-micro 2 --global-batch 2
+    --seq 1024 --compress int8 --bucket-mb 256 --no-error-feedback``, 1
+    warm-up + 2 timed steps: the state reckoned first (16 B a parameter),
+    each step's ``ce``, ``aux`` and ``mtp`` (finite, aux and mtp > 0, the
+    loss their weighted sum), launch counts, ms/step, the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.model import MTP_WEIGHT, init_model
+
+    L, P, M, B, S, steps, E = DS_TRAIN_LAYERS, 1, 2, 2, 1024, 3, DS_TRAIN_EXPERTS
+    cfg = get_config(DS_ARCH)
+    cfg = cfg.replace(n_layers=L, moe=dataclasses.replace(cfg.moe, n_experts=E))
+    n_params = sum(t.numel() for t in _leaves(init_model(None, cfg, "meta")))
+    reckoned = 16 * n_params
+    free = torch.cuda.mem_get_info(dev)[0]
+    print(f"  reckoned: {n_params} parameters ({L} layer + the MTP block, {E} routed experts "
+          f"+ 1 shared each, every width published): {reckoned / 1e9:.2f} GB of state at 16 B "
+          f"a parameter (fp32 weights, gradients, AdamW m and v); {free / 1e9:.2f} GB free")
+    argv = ["--arch", DS_ARCH, "--n-layers", str(L), "--n-experts", str(E), "--stage", str(P),
+            "--n-micro", str(M), "--global-batch", str(B), "--seq", str(S), "--steps",
+            str(steps), "--compress", "int8", "--bucket-mb", "256", "--no-error-feedback",
+            "--log-every", "1"]
+    marks, peaks = [], []
+
+    def after_step(step, ts, params, batch):
+        marks.append((f"step {step}", dict(ops.LAUNCHES), None))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    res = launcher.main(argv, after_step=after_step)
+    launches = dict(ops.LAUNCHES)
+    ts = res["ts"]
+    nb = len(ts.buckets)
+    per_layer = E + ts.spec.cfg.moe.n_shared_experts
+    if "mtp" not in res["params"]:
+        raise AssertionError("the training state holds no MTP head")
+    _check_marks(marks, launches, lambda label, extra: _ds_train_counts(L, M, P, nb, per_layer))
+    for i, m in enumerate(res["metrics"]):
+        loss = res["losses"][i]
+        print(f"  step {i}: loss {loss:.6f} = ce {m['ce']:.6f} + aux {m['aux']:.6f} + "
+              f"{MTP_WEIGHT} x mtp {m['mtp']:.6f}")
+        if not (all(math.isfinite(m[k]) for k in ("ce", "aux", "mtp"))
+                and m["aux"] > 0 and m["mtp"] > 0):
+            raise AssertionError(f"step {i}: ce, aux, mtp {m} must be finite, aux and mtp > 0")
+        if abs(m["ce"] + m["aux"] + MTP_WEIGHT * m["mtp"] - loss) > 1e-4 * abs(loss):
+            raise AssertionError(f"step {i}: the loss {loss} is not ce + aux + 0.3 mtp")
+    ms_step = res["seconds"] / res["timed_steps"] * 1e3
+    per = {k: v for k, v in _ds_train_counts(L, M, P, nb, per_layer).items() if v}
+    print(f"train deepseek-v3-671b full width fp32 ({L} layer + the MTP block, {E} of 256 "
+          f"routed experts, top {ts.spec.cfg.moe.top_k}), {P} stage x {M} micro-batches, "
+          f"batch {B}x{S}, int8 wire ({nb} gradient buckets): {ms_step:.1f} ms/step over "
+          f"{res['timed_steps']} timed steps, {res['tok_s']:.1f} tok/s; state reckoned "
+          f"{reckoned / 1e9:.2f} GB, peak memory {max(peaks) / 1e9:.3f} GB (each step "
+          f"{[round(x / 1e9, 3) for x in peaks]}); launches a step {per}; card {card}")
+    del res, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gb": max(peaks) / 1e9}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4565,6 +5138,19 @@ def main() -> int:
     moe_plan = phase_plan_train(torch, ops, dev, card, arch=MOE_ARCH, label="11f",
                                 n_layers=MOE_TRAIN_LAYERS, seq=2048, steps=3, mem_gb=40,
                                 batches="1,2,4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 12a: the latent route of flash_decode and flash attention at MLA's widths")
+    entries.append(phase_ds_kernels(torch, ops, F, dev, {e["name"]: e for e in entries}))
+    print("phase 12b (i): deepseek-v3's MLA block at full width, card vs CPU")
+    phase_ds_mla(torch, dev)
+    print(f"phase 12b (ii): a deepseek-v3 MoE layer at full width, {DS_TRAIN_EXPERTS} routed "
+          "experts, card vs CPU")
+    phase_moe_layer(torch, dev, DS_ARCH, n_experts=DS_TRAIN_EXPERTS)
+    ds_serve = phase_ds_serve(torch, ops, dev, card)
+    print(f"phase 12d: train deepseek-v3 at full width, {DS_TRAIN_LAYERS} layer + the MTP "
+          f"block, {DS_TRAIN_EXPERTS} routed experts")
+    ds_train = phase_ds_train(torch, ops, dev, card)
     print("phase 9: flash attention's device times at the training shape")
     phase_flash_device(torch, ops, F, dev, {e["name"]: e for e in entries})
     print("phase 9b: the Mamba scan's device time at the Jamba prefill's shape")
@@ -4592,7 +5178,9 @@ def main() -> int:
                    "phi35_moe_train": moe_train["launches"][e["name"]],
                    "phi35_moe_continuous": moe_cont["continuous"][e["name"]],
                    "phi35_moe_lockstep_dp2": moe_cont["lockstep_dp2"][e["name"]],
-                   "phi35_moe_plan_train": moe_plan["launches"][e["name"]]}
+                   "phi35_moe_plan_train": moe_plan["launches"][e["name"]],
+                   "deepseek_v3_serve": ds_serve["launches"][e["name"]],
+                   "deepseek_v3_train": ds_train["launches"][e["name"]]}
         if not any(by_path.values()):
             raise AssertionError(f"{e['name']} was launched on no main path")
         e["launches"] = sum(by_path.values())

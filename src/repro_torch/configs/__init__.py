@@ -9,30 +9,24 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import (deepseek_7b, gemma2_2b, gemma_2b, jamba_1_5_large, phi3_5_moe_42b,
-               phi3_mini, rwkv6_7b)
+from . import (deepseek_7b, deepseek_v3, gemma2_2b, gemma_2b, jamba_1_5_large,
+               phi3_5_moe_42b, phi3_mini, rwkv6_7b)
 from .common import smoke_reduce
 
 _MODULES = (phi3_mini, gemma_2b, gemma2_2b, deepseek_7b, rwkv6_7b, phi3_5_moe_42b,
-            jamba_1_5_large)
+            jamba_1_5_large, deepseek_v3)
 
 ARCH_IDS: tuple[str, ...] = tuple(m.ARCH_ID for m in _MODULES)
 _BY_ID = {m.ARCH_ID: m for m in _MODULES}
 
-# ids of ``repro.configs`` whose families (MLA and MTP, audio, VLM) wait for
-# later slices
-NOT_PORTED = ("musicgen-large", "deepseek-v3-671b", "internvl2-2b")
-# what is missing, where only part of a family is ported
-_MISSING = {
-    "deepseek-v3-671b": "its MLA attention and MTP head are not ported (its MoE "
-                        "layers are: repro_torch.models.moe)",
-}
+# ids of ``repro.configs`` whose families (audio, VLM) wait for later slices
+NOT_PORTED = ("musicgen-large", "internvl2-2b")
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch in NOT_PORTED:
-        why = _MISSING.get(arch, f"ported: {list(ARCH_IDS)}")
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; {why}")
+        raise NotImplementedError(f"arch {arch!r} is not ported yet; "
+                                  f"ported: {list(ARCH_IDS)}")
     if arch not in _BY_ID:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_BY_ID)}")
     return _BY_ID[arch].config()

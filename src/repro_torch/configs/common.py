@@ -4,12 +4,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig
 
 
 def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family variant: <=2 periods, d_model 256, 4 heads x 64,
-    4 experts.
+    """Reduced same-family variant: <=2 periods, d_model 256, 4 heads x 64
+    (MLA: ranks 64 / 32, heads 32 + 16 wide, values 32), 4 experts.
 
     Keeps the pattern (so alternating structure is exercised) while
     shrinking every dimension for a CPU-speed forward step.  Same values as
@@ -27,9 +27,13 @@ def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
         a = cfg.attn
         n_heads = 4
         n_kv = max(1, min(a.n_kv_heads, n_heads * a.n_kv_heads // a.n_heads))
+        mla = None
+        if a.mla is not None:
+            mla = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
+                            qk_rope_dim=16, v_head_dim=32)
         kw["attn"] = dataclasses.replace(
             a, n_heads=n_heads, n_kv_heads=n_kv, head_dim=64,
-            window=None if a.window is None else 64)
+            window=None if a.window is None else 64, mla=mla)
         kw["pattern"] = tuple(
             dataclasses.replace(s, window=None if s.window is None else 64)
             for s in cfg.pattern)

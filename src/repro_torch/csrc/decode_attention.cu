@@ -68,6 +68,10 @@
 //    already fills the card.
 // The cache is read in its model layout (B, S, Hkv, D) by strides: no
 // transposed or padded copy is made.
+//
+// The latent route (`decode_latent`, below the kernel above) is the same
+// function for MLA's latent cache: one KV head, a key of two strided pieces
+// and values narrower than the key.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -756,6 +760,247 @@ int dispatch(Params p, int B, int Hkv, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The latent route: DeepSeek-V3's MLA decode (src/repro/models/attention.py
+// `mla_decode`, lines 454-487, which repro computes with einsums and no
+// kernel of its own; it is flash_decode's function at one KV head).  The
+// query of head h is q_lat ‖ q_rope (R + Dr = 512 + 64 wide), the key of
+// every head the latent cache row c_kv ‖ k_rope, the value c_kv (R wide):
+// MQA in latent space, each row at its own length.
+//
+// Bound on the card: operations.  Every head reads the same key and value
+// rows, so a step moves the cache once (len * (R + Dr) floats a batch row)
+// for 2 * (2R + Dr) flops a (head, key): at 128 heads, 64 flops a byte.
+//
+// Design (simple SIMT, float32): one CTA of 8 warps serves 16 heads of one
+// batch row over one split of the keys; the splits of a row (from S on the
+// host) write partial (m, l, acc) to a scratch that a second launch merges.
+// The keys move in chunks of 32 rows, c_kv and k_rope read by their own
+// strides into one shared row each (R + Dr floats, padded so that rows
+// start 16 bytes apart modulo the banks), by 16-byte cp.async in two
+// stages: chunk c + 1 is in flight while chunk c is used.  q, scaled,
+// waits in shared memory for the CTA.  Each warp owns 2 heads: in the
+// scores a lane owns a key (float4 reads of its row, q broadcast); the
+// online softmax is a warp reduction a head and chunk; in P V a lane owns
+// 16 of the R value columns (4 float4 groups) and takes each key's p by
+// shuffle.  The chunk is read from device memory once for the CTA's 16
+// heads (the other CTAs of the row find it in L2).
+constexpr int kLatHeads = 16;       // query heads a CTA serves, 2 a warp
+constexpr int kLatKeys = 32;        // keys a chunk: a lane each in the scores
+constexpr int kLatMaxR = 512;       // value columns at most: 4 float4 groups a lane
+constexpr int kLatMaxWidth = 576;   // R + Dr at most
+constexpr int kLatMaxSplits = 16;
+static_assert(kThreads == 32 * kLatHeads / 2, "the latent route's warps own 2 heads each");
+static_assert(kLatKeys == 32, "a lane owns a key of the chunk in the scores");
+
+struct LatentParams {
+  const float* q_lat; const float* q_rope; const float* ckv; const float* krope;
+  float* out;
+  float* part;         // splits > 1: partial acc (B, H, P, R), then (m, l) (B, H, P, 2)
+  const int* lens; int len_scalar;
+  int B, H, S, R, Dr;
+  int RS;              // floats between shared rows: >= R + Dr, = 4 modulo 8
+  long long c_sb, c_ss, k_sb, k_ss;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
+}
+
+// one head's online softmax over a chunk: s is this lane's score (-inf past
+// the range); returns this lane's p and rescales (m, l); corr is the
+// factor for the accumulator
+__device__ __forceinline__ float online_update(float s, float& m, float& l, float& corr) {
+  const float m_new = fmaxf(m, warp_max(s));
+  const bool any = m_new != -INFINITY;
+  corr = any ? expf(m - m_new) : 1.f;
+  const float pr = any ? expf(s - m_new) : 0.f;
+  l = l * corr + warp_sum(pr);
+  m = m_new;
+  return pr;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+decode_latent_kernel(const __grid_constant__ LatentParams p) {
+  extern __shared__ __align__(16) float lsm[];
+  const int RS = p.RS, W = p.R + p.Dr;
+  float* qs = lsm;                           // [kLatHeads][RS]: scale * (q_lat ‖ q_rope)
+  float* ks = lsm + kLatHeads * RS;          // [2][kLatKeys][RS]: c_kv ‖ k_rope rows
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int h0 = blockIdx.y * kLatHeads, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // this split's keys: [0, len) in even whole chunks
+  int len = p.lens ? p.lens[b] : p.len_scalar;
+  len = max(0, min(len, p.S));
+  const int per = ((len + nsplit - 1) / nsplit + kLatKeys - 1) / kLatKeys * kLatKeys;
+  const int k0 = split * per, k1 = min(len, k0 + per);
+  const int nchunks = k1 > k0 ? (k1 - k0 + kLatKeys - 1) / kLatKeys : 0;
+
+  const float* cb = p.ckv + b * p.c_sb;
+  const float* rb = p.krope + b * p.k_sb;
+  const int gr = p.R / 4, gw = W / 4;        // 16-byte groups of c_kv, of a row
+  auto stage = [&](int c) {
+    float* dst = ks + (c & 1) * kLatKeys * RS;
+    const int key0 = k0 + c * kLatKeys;
+    for (int i = tid; i < kLatKeys * gw; i += kThreads) {
+      const int r = i / gw, j = i - r * gw, key = key0 + r;
+      const bool in = key < k1;              // rows past the range are zero-filled
+      const long long row = in ? key : 0;
+      const float* src = j < gr ? cb + row * p.c_ss + 4 * j : rb + row * p.k_ss + 4 * (j - gr);
+      cp_async16(dst + r * RS + 4 * j, src, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  if (nchunks > 0) stage(0);
+
+  for (int i = tid; i < kLatHeads * W; i += kThreads) {
+    const int g = i / W, d = i - g * W, h = h0 + g;
+    float v = 0.f;
+    if (h < p.H) {
+      const long long row = (long long)b * p.H + h;
+      v = d < p.R ? p.q_lat[row * p.R + d] : p.q_rope[row * p.Dr + (d - p.R)];
+    }
+    qs[g * RS + d] = v * p.scale;
+  }
+
+  const float* qa = qs + (2 * warp) * RS;
+  const float* qb = qa + RS;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float acc_a[4][4], acc_b[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_a[j][e] = acc_b[j][e] = 0.f;
+
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                         // chunk c (and q) in shared memory
+    const float* kc = ks + (c & 1) * kLatKeys * RS;
+
+    // scores: this lane's key against the warp's two heads
+    const float* kr = kc + lane * RS;
+    float sa = 0.f, sb = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < W; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+      sa = dot4(*reinterpret_cast<const float4*>(qa + d), kv, sa);
+      sb = dot4(*reinterpret_cast<const float4*>(qb + d), kv, sb);
+    }
+    if (k0 + c * kLatKeys + lane >= k1) sa = sb = -INFINITY;
+    float corr_a, corr_b;
+    const float pa = online_update(sa, m_a, l_a, corr_a);
+    const float pb = online_update(sb, m_b, l_b, corr_b);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) { acc_a[j][e] *= corr_a; acc_b[j][e] *= corr_b; }
+
+    // P V: the lane's value columns 4 (lane + 32 j) .. + 3 of every key
+#pragma unroll 4
+    for (int k = 0; k < kLatKeys; ++k) {
+      const float wa = __shfl_sync(0xffffffffu, pa, k);
+      const float wb = __shfl_sync(0xffffffffu, pb, k);
+      const float* vr = kc + k * RS;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 4 * (lane + 32 * j);
+        if (col < p.R) {
+          const float4 v = *reinterpret_cast<const float4*>(vr + col);
+          acc_a[j][0] = fmaf(wa, v.x, acc_a[j][0]); acc_a[j][1] = fmaf(wa, v.y, acc_a[j][1]);
+          acc_a[j][2] = fmaf(wa, v.z, acc_a[j][2]); acc_a[j][3] = fmaf(wa, v.w, acc_a[j][3]);
+          acc_b[j][0] = fmaf(wb, v.x, acc_b[j][0]); acc_b[j][1] = fmaf(wb, v.y, acc_b[j][1]);
+          acc_b[j][2] = fmaf(wb, v.z, acc_b[j][2]); acc_b[j][3] = fmaf(wb, v.w, acc_b[j][3]);
+        }
+      }
+    }
+    __syncthreads();                         // chunk c is read: its stage may refill
+  }
+
+  // the warp's two heads: the output (one split) or this split's partial
+  auto emit = [&](int h, float m, float l, const float (&acc)[4][4]) {
+    if (h >= p.H) return;
+    const long long row = (long long)b * p.H + h;
+    float* dst;
+    float inv = 1.f;
+    if (nsplit == 1) {
+      dst = p.out + row * p.R;
+      inv = 1.f / fmaxf(l, 1e-30f);          // an empty row gives 0
+    } else {
+      dst = p.part + (row * nsplit + split) * p.R;
+      if (lane == 0) {
+        float* ml = p.part + (long long)p.B * p.H * nsplit * p.R + (row * nsplit + split) * 2;
+        ml[0] = m;
+        ml[1] = l;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 4 * (lane + 32 * j);
+      if (col < p.R)
+        *reinterpret_cast<float4*>(dst + col) =
+            make_float4(acc[j][0] * inv, acc[j][1] * inv, acc[j][2] * inv, acc[j][3] * inv);
+    }
+  };
+  emit(h0 + 2 * warp, m_a, l_a, acc_a);
+  emit(h0 + 2 * warp + 1, m_b, l_b, acc_b);
+}
+
+// the splits' partials of one (b, head) merged: each weighted by exp(m_s -
+// m_all), an empty split (m = -inf) by exactly 0
+__global__ void decode_latent_merge(const __grid_constant__ LatentParams p, int nsplit) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long row = (long long)b * p.H + h;
+  const float* po = p.part + row * nsplit * p.R;
+  const float* ml = p.part + (long long)p.B * p.H * nsplit * p.R + row * nsplit * 2;
+  float m_all = -INFINITY;
+  for (int s = 0; s < nsplit; ++s) m_all = fmaxf(m_all, ml[2 * s]);
+  for (int col = 4 * threadIdx.x; col < p.R; col += 4 * blockDim.x) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = ml[2 * s] == -INFINITY ? 0.f : expf(ml[2 * s] - m_all);
+      l = fmaf(w, ml[2 * s + 1], l);
+      const float4 a = *reinterpret_cast<const float4*>(po + s * p.R + col);
+      o.x = fmaf(w, a.x, o.x); o.y = fmaf(w, a.y, o.y);
+      o.z = fmaf(w, a.z, o.z); o.w = fmaf(w, a.w, o.w);
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<float4*>(p.out + row * p.R + col) =
+        make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+  }
+}
+
+// shared-memory bytes of the latent kernel at row stride RS
+int latent_smem(int RS) { return (kLatHeads + 2 * kLatKeys) * RS * 4; }
+
 }  // namespace
 
 extern "C" {
@@ -781,6 +1026,49 @@ int decode_attention(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0) return dispatch<float>(p, B, Hkv, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, Hkv, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The latent route (MLA decode), float32.  q_lat (B, H, R) and q_rope (B, H,
+// Dr) contiguous; ckv (B, S, R) and krope (B, S, Dr) with unit stride on the
+// last dim and the (B, S) strides given in elements; out (B, H, R).  part:
+// (B * H * splits * (R + 2)) floats of scratch when splits > 1.  lens: (B,)
+// int32 on the device, or null to use len_scalar.  R <= 512 and R + Dr <= 576,
+// multiples of 4; pointers and row strides 16-byte aligned.  One launch, and
+// a second (the merge) when splits > 1.
+int decode_latent(const float* q_lat, const float* q_rope, const float* ckv,
+                  const float* krope, float* out, float* part, const int* lens,
+                  int len_scalar, int B, int H, int S, int R, int Dr, long long c_sb,
+                  long long c_ss, long long k_sb, long long k_ss, float scale,
+                  int splits, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || R <= 0 || Dr < 0 || R % 4 || Dr % 4 || R > kLatMaxR ||
+      R + Dr > kLatMaxWidth || splits < 1 || splits > kLatMaxSplits ||
+      (splits > 1 && !part))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static bool ready[kMaxDevices] = {false};
+  if (!ready[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_latent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        latent_smem(kLatMaxWidth + 4));
+    if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  LatentParams p = {};
+  p.q_lat = q_lat; p.q_rope = q_rope; p.ckv = ckv; p.krope = krope;
+  p.out = out; p.part = part; p.lens = lens; p.len_scalar = len_scalar;
+  p.B = B; p.H = H; p.S = S; p.R = R; p.Dr = Dr;
+  p.RS = (R + Dr + 7) / 8 * 8 + 4;
+  p.c_sb = c_sb; p.c_ss = c_ss; p.k_sb = k_sb; p.k_ss = k_ss;
+  p.scale = scale;
+  const dim3 grid(splits, (H + kLatHeads - 1) / kLatHeads, B);
+  decode_latent_kernel<<<grid, kThreads, latent_smem(p.RS), st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  decode_latent_merge<<<dim3(H, B), 128, 0, st>>>(p, splits);
+  return (int)cudaGetLastError();
 }
 
 const char* decode_attention_error_string(int err) {

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: source file -> its C entry points
 SOURCES = {
-    "decode_attention": ("decode_attention",),
+    "decode_attention": ("decode_attention", "decode_latent"),
     "flash_attention": ("flash_attention", "flash_attention_route"),
     "flash_attention_bwd": ("flash_attention_bwd", "flash_attention_bwd_route"),
     "fused_swiglu": ("fused_swiglu",),
@@ -51,6 +51,8 @@ _L3 = ctypes.POINTER(ctypes.c_longlong)
 ARGTYPES = {
     "decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _L3, _L3, _F, _I, _F, _P],
+    "decode_latent": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _LL, _LL, _LL, _LL, _F, _I, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _L3, _L3, _L3, _F, _I, _I, _F, _P],
     "flash_attention_route": [_I],
@@ -69,8 +71,8 @@ ARGTYPES = {
 #: launches of each kernel wrapper since the last ``reset_launches`` (one per
 #: call of a C entry point, however many CUDA launches it makes), counted
 #: by the Python function that calls :func:`launch` for that kernel
-LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-            "fused_swiglu": 0, "swiglu_bwd": 0, "quantize_tiles": 0,
+LAUNCHES = {"flash_decode": 0, "flash_decode_latent": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "fused_swiglu": 0, "swiglu_bwd": 0, "quantize_tiles": 0,
             "dequantize_tiles": 0, "mamba_scan": 0, "rwkv6_wkv": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

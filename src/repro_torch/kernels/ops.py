@@ -24,17 +24,19 @@ from __future__ import annotations
 import torch
 
 from ._build import LAUNCHES
-from .decode_attention import check_cache_len, flash_decode
+from .decode_attention import check_cache_len, flash_decode, flash_decode_latent
 from .flash_attention import FlashAttentionFn, flash_attention
 from .fused_swiglu import FusedSwigluFn, fused_swiglu
 from .mamba_scan import mamba_scan
 from .quant_transfer import dequantize_tiles_op, quantize_tiles_op  # noqa: F401
-from .ref import naive_attention, naive_decode, naive_mamba_scan, naive_swiglu, naive_wkv6
+from .ref import (naive_attention, naive_decode, naive_latent_decode, naive_mamba_scan,
+                  naive_swiglu, naive_wkv6)
 from .rwkv6_wkv import rwkv6_wkv
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention_op", "flash_decode_op",
-           "fused_swiglu_op", "mamba_scan_op", "rwkv6_wkv_op", "quantize_tiles_op",
-           "dequantize_tiles_op", "plain_flash_attention", "plain_flash_attention_bwd",
+           "flash_decode_latent_op", "fused_swiglu_op", "mamba_scan_op", "rwkv6_wkv_op",
+           "quantize_tiles_op", "dequantize_tiles_op", "plain_flash_attention",
+           "plain_flash_attention_bwd",
            "plain_flash_decode", "plain_fused_swiglu", "plain_rwkv6_wkv"]
 
 
@@ -110,6 +112,17 @@ def flash_decode_op(q, k_cache, v_cache, cache_len, **kw):
     if q.device.type == "cpu":
         return plain_flash_decode(q, k_cache, v_cache, cache_len, **kw)
     return flash_decode(q, k_cache, v_cache, cache_len, **kw)
+
+
+def flash_decode_latent_op(q_lat, q_rope, c_kv, k_rope, cache_len, *, scale: float):
+    """MLA's latent decode: q_lat (B, H, R) ‖ q_rope (B, H, Dr) against the
+    caches c_kv (B, S, R) ‖ k_rope (B, S, Dr), values c_kv -> (B, H, R)
+    float32; cache_len int or (B,) int32.  Forward only, as
+    :func:`flash_decode_op`."""
+    check_cache_len(q_lat, cache_len)
+    if q_lat.device.type == "cpu":
+        return naive_latent_decode(q_lat, q_rope, c_kv, k_rope, cache_len, scale=scale)
+    return flash_decode_latent(q_lat, q_rope, c_kv, k_rope, cache_len, scale=scale)
 
 
 def fused_swiglu_op(x, wg, wu, wd, act: str = "silu"):

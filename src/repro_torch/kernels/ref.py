@@ -74,6 +74,30 @@ def naive_decode(q, k_cache, v_cache, cache_len, *, scale=None, window=None,
     return torch.einsum("bk,bkd->bd", p, vv).to(q.dtype)
 
 
+def naive_latent_decode(q_lat, q_rope, c_kv, k_rope, cache_len, *, scale):
+    """MLA's latent decode attention (``repro.models.attention.mla_decode``'s
+    einsums): MQA over one shared key ``c_kv ‖ k_rope`` with values
+    ``c_kv``, from the absorbed query ``q_lat ‖ q_rope``.
+
+    q_lat: (B, H, R); q_rope: (B, H, Dr); c_kv: (B, S, R); k_rope: (B, S,
+    Dr); ``cache_len`` an int or a (B,) tensor of per-row lengths.  Returns
+    (B, H, R) float32, in ``repro``'s order: both score sums, then the
+    scale, the masked softmax's exponentials, P c_kv, and the division.
+    """
+    S = c_kv.shape[1]
+    ckv = c_kv.float()
+    s = torch.einsum("bhr,bkr->bhk", q_lat.float(), ckv)
+    s = s + torch.einsum("bhd,bkd->bhk", q_rope.float(), k_rope.float())
+    s = s * scale
+    pos = torch.arange(S, device=s.device)
+    clen = torch.as_tensor(cache_len, device=s.device)
+    mask = (pos[None, :] < clen[:, None])[:, None] if clen.ndim == 1 else pos < clen
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhk,bkr->bhr", p, ckv)
+    return o / torch.clamp(p.sum(dim=-1), min=1e-37)[..., None]
+
+
 def decode_chunk(G: int, D: int, elem: int) -> int:
     """Keys a stage of ``csrc/decode_attention.cu`` holds for a group of G
     query heads at head_dim D in ``elem``-byte values: 64 for 1-2 heads at

@@ -10,7 +10,9 @@ data axis of max(1, N // 4) and a model axis of the rest.  Both paths
 build their step on it.  The batch is cut into the data shards, and the
 model axis into stages and tp.
 
-The lockstep path of ``repro.launch.serve``: random weights from seed 0,
+The lockstep path of ``repro.launch.serve``: random weights from seed 0
+(without an MTP head, which serving never reads: ``repro``'s launcher sets
+``mtp_depth=0``),
 a random prompt fed one token per decode step, then ``--gen`` tokens
 sampled from ``softmax(logits / T)`` with a seeded ``torch.Generator`` on
 the device (not ``repro``'s JAX draws, so the tokens differ).  Its step
@@ -292,6 +294,7 @@ def main(argv=None) -> dict:
     from repro_torch.models.model import init_model
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = cfg.replace(mtp_depth=0)            # no serve step reads an MTP head
     if args.n_layers:
         cfg = cfg.replace(n_layers=args.n_layers)
     cache_len = args.prompt_len + args.gen

@@ -9,6 +9,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --plan --profile prof.json \\
         --devices 6 --global-batch 8 --n-micro 4 --compress int8 --staleness 1 \\
         --fail-at 3 --fail-rank 2 --backup-every 2 --steps 5  # prof.json: 3 x 36 GB
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
+        --n-layers 1 --n-experts 16 --stage 1 --n-micro 2 --global-batch 2 \\
+        --seq 1024 --compress int8 --bucket-mb 256 --no-error-feedback --steps 3
+                                           # 1 layer + the MTP block, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --stage 2 --steps 2 --compress int8
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -67,6 +71,7 @@ auction on the survivors.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -97,6 +102,9 @@ def _parse(argv):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--d-model", type=int, default=None)
     ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--n-experts", type=int, default=None,
+                    help="cut the routed experts of each MoE layer to N (top-k and "
+                         "every width unchanged)")
     ap.add_argument("--plan", action="store_true",
                     help="derive stage split / n_micro / K_p from the "
                          "Asteroid planner (Algorithm 2) and lower it")
@@ -212,7 +220,7 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
     """Run the launcher.  ``after_step(step, ts, params, batch)``, when
     given, runs after each step, before the step's timing mark;
     ``on_session(session)`` runs once the membership session is built.
-    Returns the per-step losses and ``ce`` / ``aux`` metrics, the timing,
+    Returns the per-step losses and ``ce`` / ``aux`` / ``mtp`` metrics, the timing,
     the step and the final state
     (and the session and the opening auction's ``(report, bit_identical)``,
     on the ``--events`` / ``--portfolio`` path)."""
@@ -249,6 +257,12 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
         overrides["d_model"] = args.d_model
     if args.n_layers:
         overrides["n_layers"] = args.n_layers
+    if args.n_experts:
+        if cfg.moe is None or not cfg.moe.top_k <= args.n_experts <= cfg.moe.n_experts:
+            raise SystemExit(f"--n-experts {args.n_experts}: {cfg.name} has "
+                             f"{cfg.moe and cfg.moe.n_experts} routed experts at top "
+                             f"{cfg.moe and cfg.moe.top_k}")
+        overrides["moe"] = dataclasses.replace(cfg.moe, n_experts=args.n_experts)
     if overrides:
         cfg = cfg.replace(**overrides)
     model_axis = max(args.devices, 1)
@@ -310,7 +324,7 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
     ef = ts.init_ef() if bucketed else None
     held = None
     losses: list[float] = []
-    step_metrics: list[dict] = []                 # each step's ce and MoE aux loss
+    step_metrics: list[dict] = []                 # each step's ce, MoE aux and MTP terms
     # steady state starts after the warm-up round(s): the first step, and
     # at staleness 1 also the first full round (round 0 takes gradients only)
     n_warm = 2 if spec.staleness >= 1 else 1
@@ -333,7 +347,7 @@ def main(argv=None, after_step=None, on_session=None) -> dict:
             params, opt_state, loss_t, metrics = ts.step_fn(params, opt_state, batch)
         loss = float(loss_t)                       # waits for the step
         losses.append(loss)
-        step_metrics.append({k: float(metrics[k]) for k in ("ce", "aux")})
+        step_metrics.append({k: float(metrics[k]) for k in ("ce", "aux", "mtp")})
         if after_step is not None:
             after_step(step, ts, params, batch)
         if step == n_warm - 1 and args.steps > n_warm:

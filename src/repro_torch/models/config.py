@@ -1,10 +1,11 @@
-"""Model configuration schema (the attn / MoE / Mamba / RWKV subset of ``repro``'s).
+"""Model configuration schema (the attn / MLA / MoE / Mamba / RWKV / MTP subset
+of ``repro``'s).
 
-``LayerSpec``, ``ModelConfig``, ``AttentionConfig``, ``MoEConfig``,
-``MambaConfig`` and ``RWKVConfig`` carry the same field names and defaults
-as ``repro.models``.
-Left out: the fields of families this port does not have yet (MLA,
-multi-codebook heads, frontend prefixes, MTP), which
+``LayerSpec``, ``ModelConfig``, ``AttentionConfig``, ``MLAConfig``,
+``MoEConfig``, ``MambaConfig`` and ``RWKVConfig`` carry the same field names
+and defaults as ``repro.models``.
+Left out: the fields of families this port does not have yet
+(multi-codebook heads, frontend prefixes), which
 ``repro_torch.configs.get_config`` refuses, and
 ``AttentionConfig.q_chunk``/``kv_chunk``, the block sizes of ``repro``'s
 XLA attention (the port's flash kernel tiles by its own), and
@@ -19,6 +20,18 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 Multi-head Latent Attention dims (per head unless noted;
+    ``repro.models.attention.MLAConfig``)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     n_heads: int
     n_kv_heads: int
@@ -26,6 +39,7 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     window: int | None = None          # sliding-window size (None = full)
     softcap: float | None = None       # attn logit softcapping (Gemma2)
+    mla: MLAConfig | None = None       # DeepSeek-V3 latent attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +133,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: float | None = None
     embed_scale: bool = False        # Gemma multiplies embeddings by sqrt(d)
+    mtp_depth: int = 0               # DeepSeek-V3 multi-token prediction heads
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     source: str = ""
@@ -143,7 +158,13 @@ class ModelConfig:
 
     def layer_param_count(self, spec: LayerSpec) -> int:
         d, n = self.d_model, 0
-        if spec.kind == "attn":
+        if spec.kind == "attn" and self.attn.mla is not None:
+            a, m = self.attn, self.attn.mla
+            n += d * m.q_lora_rank + m.q_lora_rank * a.n_heads * (m.qk_nope_dim + m.qk_rope_dim)
+            n += d * (m.kv_lora_rank + m.qk_rope_dim)
+            n += m.kv_lora_rank * a.n_heads * (m.qk_nope_dim + m.v_head_dim)
+            n += a.n_heads * m.v_head_dim * d
+        elif spec.kind == "attn":
             a = self.attn
             n += d * a.n_heads * a.head_dim * 2
             n += d * a.n_kv_heads * a.head_dim * 2

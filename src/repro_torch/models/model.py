@@ -1,9 +1,12 @@
-"""CausalLM assembly: embedding -> stacked periods -> norm -> head, and the
-next-token loss.
+"""CausalLM assembly: embedding -> stacked periods -> norm -> head (+MTP), and
+the next-token loss.
 
 The text-LM subset of ``repro.models.model`` (single codebook, no frontend
-prefix, no MTP head), with ``repro``'s parameter names and layout; the MoE
-layers' aux loss is added to the loss as there.  The
+prefix), with ``repro``'s parameter names and layout; the MoE layers' aux
+loss is added to the loss as there, and so is DeepSeek-V3's multi-token
+prediction term (``mtp_depth`` 1: one extra period predicting token t+2
+from [emb(t+1); h_t], sharing the embedding and the head, weighted by
+``MTP_WEIGHT``).  The
 loss is computed in sequence chunks, so the (B, S, V) logits exist one
 chunk at a time.
 """
@@ -13,23 +16,39 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .blocks import apply_periods, decode_periods, init_period_states, init_periods
+from .blocks import (apply_period, apply_periods, decode_periods, init_period,
+                     init_period_states, init_periods)
 from .config import ModelConfig
 from .module import dense_init, embed_init
 from .norms import init_rmsnorm, rmsnorm
 
+MTP_WEIGHT = 0.3
+
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     """Random weights from ``gen`` (which must live on ``device``: the card
-    unless the caller passes ``"cpu"``)."""
+    unless the caller passes ``"cpu"``).  With ``cfg.mtp_depth`` > 0 the
+    tree holds ``repro``'s ``"mtp"`` head (``combine``, ``norm_h``,
+    ``norm_e``, one period ``block``, ``final_norm``), drawn last, so the
+    other leaves are drawn the same with ``mtp_depth`` 0 (the serve
+    launcher's: at deepseek-v3's widths the head is another 46 GB)."""
     d, v, dtype = cfg.d_model, cfg.vocab_size, cfg.pdtype
+    zc = cfg.zero_centered_norm
     params = {
         "embed": embed_init(gen, (v, d), dtype, device),
         "periods": init_periods(gen, cfg, device),
-        "final_norm": init_rmsnorm(d, dtype, cfg.zero_centered_norm, device),
+        "final_norm": init_rmsnorm(d, dtype, zc, device),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (d, v), d, dtype, device)
+    if cfg.mtp_depth > 0:
+        params["mtp"] = {
+            "combine": dense_init(gen, (2 * d, d), 2 * d, dtype, device),
+            "norm_h": init_rmsnorm(d, dtype, zc, device),
+            "norm_e": init_rmsnorm(d, dtype, zc, device),
+            "block": init_period(gen, cfg, device),
+            "final_norm": init_rmsnorm(d, dtype, zc, device),
+        }
     return params
 
 
@@ -119,8 +138,9 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, ce_chunk: int =
     """Next-token LM loss.  batch: {"tokens" (B, S), optional "mask" (B, S)}.
 
     Returns (loss, metrics): the mean cross entropy plus the MoE aux loss,
-    as ``repro.models.model.loss_fn`` returns it; multi-codebook tokens and
-    frontend prefixes are refused.
+    plus ``MTP_WEIGHT`` times the MTP term (``metrics["mtp"]``) where
+    ``cfg.mtp_depth`` > 0, as ``repro.models.model.loss_fn`` returns it;
+    multi-codebook tokens and frontend prefixes are refused.
     """
     if "prefix" in batch:
         raise NotImplementedError("frontend prefix embeddings are not ported yet")
@@ -138,7 +158,40 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, ce_chunk: int =
     aux = aux_tensor(aux, h.device)
     metrics = {"ce": loss, "aux": aux, "acc": correct / torch.clamp(count, min=1.0),
                "tokens": count}
-    return loss + aux, metrics
+    loss = loss + aux
+    if cfg.mtp_depth > 0:
+        l2, c2 = mtp_loss_sums(params, h, tokens, cfg, batch.get("mask"), ce_chunk)
+        metrics["mtp"] = l2 / torch.clamp(c2, min=1.0)
+        loss = loss + MTP_WEIGHT * metrics["mtp"]
+    return loss, metrics
+
+
+def mtp_loss_sums(params, h, tokens, cfg: ModelConfig, mask=None, ce_chunk: int = 2048,
+                  sets: int = 1):
+    """DeepSeek-V3's multi-token prediction (depth 1), ``repro``'s
+    ``_mtp_loss`` before its division: position t predicts token t+2 from
+    [norm_e(emb(t+1)); norm_h(h_t)] -> combine -> one period -> final norm
+    -> the shared head.  ``h``: (B, S, D), the backbone's final-normed
+    output.  Returns (masked loss sum, count); the last two positions and
+    ``mask``'s zeros count nothing.  The period's MoE aux loss is dropped,
+    as there; ``sets``: its MoE token sets (``models.moe.moe``)."""
+    m, zc, eps = params["mtp"], cfg.zero_centered_norm, cfg.norm_eps
+    B, S = tokens.shape
+    emb = embed_tokens(params, tokens, cfg)
+    e = torch.cat([emb[:, 1:], torch.zeros_like(emb[:, :1])], dim=1)
+    hh = torch.cat([rmsnorm(m["norm_e"], e, eps, zc), rmsnorm(m["norm_h"], h, eps, zc)],
+                   dim=-1)
+    hh = (hh @ m["combine"]).to(cfg.cdtype)
+    positions = torch.arange(S, dtype=torch.int32, device=hh.device).expand(B, S)
+    hh, _ = apply_period(m["block"], hh, positions, cfg, sets)
+    hh = rmsnorm(m["final_norm"], hh, eps, zc)
+    tgt = torch.cat([tokens[:, 2:], torch.zeros_like(tokens[:, :2])], dim=1)
+    msk = torch.ones((B, S), dtype=torch.float32, device=hh.device) if mask is None \
+        else mask.float()
+    msk = msk * (torch.arange(S, device=hh.device) < S - 2)
+    l2, c2, _ = chunked_ce_loss(hh, _head_weight(params, cfg), tgt, msk, cfg.logit_softcap,
+                                ce_chunk)
+    return l2, c2
 
 
 def init_decode_states(batch: int, max_len: int, cfg: ModelConfig, device="cuda"):

@@ -1,4 +1,5 @@
-"""Rotary position embeddings (RoPE), split-half convention."""
+"""Rotary position embeddings (RoPE), split-half convention, including
+partial-dim RoPE for MLA."""
 
 from __future__ import annotations
 
@@ -35,3 +36,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     out1 = x1 * cos_b - x2 * sin_b
     out2 = x2 * cos_b + x1 * sin_b
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_rope_partial(x: torch.Tensor, cos, sin, rope_dim: int) -> torch.Tensor:
+    """RoPE on the *last* ``rope_dim`` channels only (DeepSeek MLA layout)."""
+    if rope_dim == x.shape[-1]:
+        return apply_rope(x, cos, sin)
+    pass_dim = x.shape[-1] - rope_dim
+    return torch.cat([x[..., :pass_dim], apply_rope(x[..., pass_dim:], cos, sin)], dim=-1)

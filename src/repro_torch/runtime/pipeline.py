@@ -55,7 +55,13 @@ the one card:
   over stages; on one card the head runs once over all M.  The sums are the
   same up to float reassociation.  The loss is ``ce + aux``, the aux summed
   over stages and divided by M (``repro``'s ``dp_shards * M``, with one
-  data shard).
+  data shard), plus ``MTP_WEIGHT`` times the MTP term where
+  ``cfg.mtp_depth`` > 0: ``repro`` runs the MTP block on each stage's M / P
+  micro-batches of the last stage's outputs, so its MoE layers route those
+  rows as one token set; here the block runs once over all M with P token
+  sets (``models.moe.moe``'s ``sets``).  Where P does not divide M,
+  ``repro`` pads the last stages' chunks with zero rows that take expert
+  capacity; that is not reproduced (one set).
 
 Tensor parallelism, vocab padding and heterogeneous per-shard allocations
 are not ported yet.
@@ -72,7 +78,8 @@ from repro_torch.distributed.mesh import MeshPlan
 from repro_torch.kernels.quant_transfer import roundtrip
 from repro_torch.models.blocks import apply_period_remat, tree_index
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import _head_weight, aux_tensor, chunked_ce_loss, embed_tokens
+from repro_torch.models.model import (MTP_WEIGHT, _head_weight, aux_tensor, chunked_ce_loss,
+                                      embed_tokens, mtp_loss_sums)
 from repro_torch.models.norms import rmsnorm
 from repro_torch.optim import tree_leaves, tree_map
 
@@ -292,7 +299,15 @@ def spmd_loss_fn(spec: TrainSpec):
                                                msk, cfg.logit_softcap, spec.ce_chunk)
         ce = loss_sum / torch.clamp(cnt_sum, min=1.0)
         aux = aux_tensor(aux / M, x.device)       # summed over stages, mean over M
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)  # no MTP
-        return ce + aux, {"ce": ce, "aux": aux, "mtp": zero, "tokens": cnt_sum}
+        loss = ce + aux
+        if cfg.mtp_depth > 0:
+            P = len(spec.ranges)
+            l2, c2 = mtp_loss_sums(params, h, tokens, cfg, None, spec.ce_chunk,
+                                   sets=P if M % P == 0 else 1)
+            mtp = l2 / torch.clamp(c2, min=1.0)
+            loss = loss + MTP_WEIGHT * mtp
+        else:
+            mtp = torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss, {"ce": ce, "aux": aux, "mtp": mtp, "tokens": cnt_sum}
 
     return fn

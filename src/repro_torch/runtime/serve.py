@@ -35,8 +35,9 @@ The one-card case of ``repro.runtime.serve`` (no ``shard_map``):
   prefill does.
 
 With tp 1 nothing is padded, so ``repro``'s ``prepare_params`` is
-``init_model`` here.  Sequence-sharded decode (``seq_shard``: the cache
-sharded over the data axis) is not ported.
+``init_model`` here (on a config with ``mtp_depth`` 0, as the serve
+launcher's: no serve step reads an MTP head).  Sequence-sharded decode (``seq_shard``: the cache sharded over the data
+axis) is not ported.
 """
 
 from __future__ import annotations
@@ -138,7 +139,9 @@ def prepare_serve_states(cfg: ModelConfig, plan: MeshPlan, batch_global: int,
     """Decode state tree, one ``{"mixer": ...}`` per pattern slot, leaves
     stacked on a leading n_periods axis (in model order, for any stage
     count: the port never pads the stack): an attention slot holds ``{"k",
-    "v"}`` (n_periods, B, cache_len, Hkv, D), a Mamba slot ``{"conv"}``
+    "v"}`` (n_periods, B, cache_len, Hkv, D) (MLA: the latent ``{"c_kv"}``
+    (n_periods, B, cache_len, kv_lora_rank) and ``{"k_rope"}`` (n_periods,
+    B, cache_len, qk_rope_dim)), a Mamba slot ``{"conv"}``
     (n_periods, B, d_conv - 1, d_inner) and ``{"ssm"}`` (n_periods, B,
     d_inner, d_state) float32, an RWKV slot ``{"shift"}`` (n_periods, B, 1,
     D) and ``{"wkv"}`` (n_periods, B, H, head_dim, head_dim) float32, and

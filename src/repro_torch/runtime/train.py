@@ -147,7 +147,9 @@ def tree_paths(tree, prefix=()) -> list:
 
 def _leaf_axes(path) -> set:
     """Mesh axes in a leaf's PartitionSpec under ``repro``'s training layout
-    (``distributed/sharding.py``), for the attn, dense-MLP and MoE leaves."""
+    (``distributed/sharding.py``), for the attn, MLA, dense-MLP, MoE and MTP
+    leaves (MLA's up-projections head-sharded, its down-projections and the
+    MTP ``combine`` replicated; the MTP block is not stacked over stages)."""
     names = [k for k in path if isinstance(k, str)]
     name, parent = names[-1], (names[-2] if len(names) > 1 else "")
     if name in ("embed", "head"):
@@ -155,8 +157,8 @@ def _leaf_axes(path) -> set:
     used = {"stage"} if "periods" in names else set()
     if parent == "experts":
         used |= {"data", "tp"}                       # expert-parallel (EP = DP), d_ff on tp
-    elif name in ("wq", "wk", "wv", "wo") or (parent in ("mlp", "shared") and
-                                              name in ("gate", "up", "down")):
+    elif name in ("wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b") or (
+            parent in ("mlp", "shared") and name in ("gate", "up", "down")):
         used.add("tp")                               # column / row parallel
     return used                                      # norms, router: replicated
 

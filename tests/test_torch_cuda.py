@@ -865,3 +865,79 @@ def test_rwkv_smoke_serve_card_matches_cpu_in_place(dev):
     want = {name: 0 for name in ops.LAUNCHES}
     want.update(rwkv6_wkv=cfg.n_layers)
     assert after_prefill == want and after_all == want
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MLA: the latent route of flash_decode, attention at D = 192
+# ---------------------------------------------------------------------------
+
+LATENT_CASES = [
+    # (B, H, S, R, Dr, lens): lens None = a shared length of S
+    (8, 128, 256, 512, 64, (256, 1, 17, 64, 128, 200, 255, 100)),   # the decode step
+    (1, 128, 4096, 512, 64, None),                                   # 16 splits
+    (3, 20, 300, 512, 64, (300, 33, 250)),     # a partial head tile, ragged S
+    (2, 4, 70, 32, 16, (70, 5)),               # the smoke widths: R of 32
+]
+
+
+@pytest.mark.parametrize("case", LATENT_CASES)
+def test_latent_decode_kernel_matches_plain(dev, case):
+    """The latent route against ``ref.naive_latent_decode``, on caches
+    read by strides out of stacked (periods, B, S, ...) buffers, as the
+    model hands them over."""
+    from repro_torch.kernels import ref
+    B, H, S, R, Dr, lens = case
+    rng = np.random.default_rng(2)
+    q_lat, q_rope = _rand(rng, (B, H, R), dev), _rand(rng, (B, H, Dr), dev)
+    ckv = _rand(rng, (2, B, S, R), dev)[1]
+    krope = _rand(rng, (2, B, S, Dr), dev)[1]
+    clen = S if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    scale = 192 ** -0.5
+    before = ops.LAUNCHES["flash_decode_latent"]
+    out = ops.flash_decode_latent_op(q_lat, q_rope, ckv, krope, clen, scale=scale)
+    assert ops.LAUNCHES["flash_decode_latent"] == before + 1
+    want = ref.naive_latent_decode(q_lat, q_rope, ckv, krope, clen, scale=scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    again = ops.flash_decode_latent_op(q_lat, q_rope, ckv, krope, clen, scale=scale)
+    assert torch.equal(out, again)
+
+
+def test_latent_decode_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.decode_attention import flash_decode_latent
+    rng = np.random.default_rng(3)
+    q_lat, q_rope = _rand(rng, (1, 16, 512), dev), _rand(rng, (1, 16, 64), dev)
+    ckv, krope = _rand(rng, (1, 8, 512), dev), _rand(rng, (1, 8, 64), dev)
+    with pytest.raises(ValueError, match="float32"):
+        flash_decode_latent(q_lat.bfloat16(), q_rope, ckv, krope, 8, scale=1.0)
+    with pytest.raises(ValueError, match="widths"):
+        flash_decode_latent(_rand(rng, (1, 16, 640), dev), q_rope,
+                            _rand(rng, (1, 8, 640), dev), krope, 8, scale=1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_decode_latent(q_lat, q_rope, _rand(rng, (1, 8, 516), dev)[..., 1:513],
+                            krope, 8, scale=1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 8, 192), (1, 512, 4, 192)])
+def test_flash_at_head_dim_192_with_padded_values(dev, shape):
+    """MLA's prefill and training attention: q/k at 192, v of 128 zero-padded
+    to 192 (``models.attention.mla_forward``), forward and backward on the
+    two-CTA cluster route, against the plain version; the padding's columns
+    come out 0 and its gradient is cut by the slice."""
+    B, S, H, D = shape
+    rng = np.random.default_rng(4)
+    q, k = _rand(rng, (B, S, H, D), dev), _rand(rng, (B, S, H, D), dev)
+    v = _rand(rng, (B, S, H, 128), dev)
+    assert flash_attention_fwd_route(q, k, torch.nn.functional.pad(v, (0, 64))) == "tc_cluster"
+    dout = _rand(rng, (B, S, H, 128), dev)
+    grads = {}
+    for name, fn in (("kernel", ops.flash_attention_op), ("plain", ops.plain_flash_attention)):
+        qq, kk, vv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        o = fn(qq, kk, torch.nn.functional.pad(vv, (0, D - 128)), scale=D ** -0.5)
+        assert float(o[..., 128:].abs().max()) == 0.0
+        o = o[..., :128]
+        o.backward(dout)
+        grads[name] = (o.detach(), qq.grad, kk.grad, vv.grad)
+    torch.cuda.synchronize()
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -29,7 +29,7 @@ from repro_torch.models import blocks as tblocks
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import norms as tnorms
 from repro_torch.models import rotary as trot
-from repro_torch.models.config import AttentionConfig
+from repro_torch.models.config import AttentionConfig, MLAConfig
 
 
 def _np(tree):
@@ -47,23 +47,24 @@ def _pair(rng, shape, scale=1.0):
 
 
 def _port_attn_cfg(a) -> AttentionConfig:
+    mla = None if a.mla is None else MLAConfig(**dataclasses.asdict(a.mla))
     return AttentionConfig(n_heads=a.n_heads, n_kv_heads=a.n_kv_heads,
                            head_dim=a.head_dim, rope_theta=a.rope_theta,
-                           window=a.window, softcap=a.softcap)
+                           window=a.window, softcap=a.softcap, mla=mla)
 
 
 CONFIG_CASES = [pytest.param("phi3-mini-3.8b", "smoke", id="smoke"),
                 pytest.param("phi3-mini-3.8b", "full", id="full")] + [
     pytest.param(arch, size, id=f"{arch}-{size}")
     for arch in ("gemma-2b", "gemma2-2b", "deepseek-7b", "phi3.5-moe-42b-a6.6b",
-                 "jamba-1.5-large-398b") for size in ("smoke", "full")]
+                 "jamba-1.5-large-398b", "deepseek-v3-671b") for size in ("smoke", "full")]
 
 
 @pytest.mark.parametrize("arch,arch_fn", CONFIG_CASES)
 def test_config_matches_repro(arch, arch_fn):
-    """The port's config of each dense and MoE arch equals repro's, field for
-    field (the family configs as dicts), at smoke and full size; so do
-    param_count() and each layer's active parameter count."""
+    """The port's config of each dense, MoE and MLA arch equals repro's,
+    field for field (the family configs as dicts), at smoke and full size;
+    so do param_count() and each layer's active parameter count."""
     from repro.configs import get_config as jax_get_config
     j = (jax_smoke_config if arch_fn == "smoke" else jax_get_config)(arch)
     t = (get_smoke_config if arch_fn == "smoke" else get_config)(arch)
@@ -84,8 +85,9 @@ def test_config_matches_repro(arch, arch_fn):
 
 
 def test_unported_arch_is_refused():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("musicgen-large")
+    for arch in ("musicgen-large", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
